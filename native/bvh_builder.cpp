@@ -2,12 +2,13 @@
 // flatten + packed primitive rows, emitted directly into caller-allocated
 // buffers (ctypes interface, no pybind11 dependency).
 //
-// TPU-native counterpart of the reference's C++ `BVHAccel` constructor +
+// Counterpart of the reference's C++ `BVHAccel` constructor +
 // the CUDA tracer's host-side "flatten BVH → linear node array" step
 // (SURVEY.md §2 rows 9, 14).  The Python fallback (tpu_pt/bvh/sah.py +
 // packed.py) implements the identical layout; tests assert equivalence.
 //
-// Build: see native/build.sh (g++ -O3 -shared -fPIC).
+// Build: tpu_pt/bvh/native.py compiles it at first use
+// (g++ -O3 -shared -fPIC) into build/, which git ignores.
 //
 // Layout contract (must match tpu_pt/bvh/packed.py):
 //   nodes:  8 octants × N nodes × 8 f32 rows

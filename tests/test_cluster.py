@@ -1,4 +1,4 @@
-"""Cluster-BVH (TPU-shaped two-phase intersector) equivalence tests."""
+"""Cluster-BVH (two-phase intersector) equivalence tests."""
 
 import jax
 import jax.numpy as jnp
@@ -148,69 +148,6 @@ def test_device_build_pyramid_invariants(setups):
         assert child.shape[0] == 8 * parent.shape[0]
 
 
-def test_pallas_pair_kernel_matches_xla(setups):
-    """The fused Pallas pair-tile kernel (optional backend) is bit-exact
-    against the XLA block-gather path."""
-    scene, cb = setups["big"]
-    if cb.tiles.shape[2] != 128:
-        cb = cl.build_cluster_bvh(scene)  # kernel needs 128-lane tiles
-    ro, rd = _rays(512, 13)
-    tmin = jnp.zeros((512, 1))
-    tmax = jnp.full((512, 1), 1e30)
-    old = cl.USE_PALLAS_PAIRS
-    try:
-        cl.USE_PALLAS_PAIRS = False
-        h_x = cl.intersect(cb, scene, ro, rd, tmin, tmax)
-        cl.USE_PALLAS_PAIRS = True
-        h_p = cl.intersect(cb, scene, ro, rd, tmin, tmax)
-    finally:
-        cl.USE_PALLAS_PAIRS = old
-    np.testing.assert_array_equal(np.asarray(h_x.hit), np.asarray(h_p.hit))
-    # fma/ordering differences leave ulp-level t deltas
-    np.testing.assert_allclose(np.asarray(h_x.t), np.asarray(h_p.t),
-                               rtol=1e-6, atol=1e-6)
-    m = np.asarray(h_x.hit)[:, 0]
-    assert (np.asarray(h_x.prim) == np.asarray(h_p.prim))[m].mean() > 0.99
-
-
-def test_dedup_pair_path_matches_regular(setups):
-    """The cluster-major dedup pair stage (cid-sorted pairs + masked-DMA
-    Pallas kernel + scatter-min reduce) agrees with the ray-major path:
-    hit mask / t / prim exact, u/v to the ulp (Mosaic op ordering)."""
-    scene, cb = setups["big"]
-    if cb.tiles.shape[2] != 128:
-        cb = cl.build_cluster_bvh(scene)  # kernel needs 128-lane tiles
-    Q = 128  # budget = 6Q = 768 = 6 kernel blocks
-    ro, rd = _rays(Q, 13)
-    tmin = jnp.zeros((Q, 1))
-    tmax = jnp.full((Q, 1), 1e30)
-    old = cl.DEDUP_PAIRS
-    try:
-        cl.DEDUP_PAIRS = False
-        h_r = cl.intersect(cb, scene, ro, rd, tmin, tmax)
-        o_r = cl.occluded(cb, scene, ro, rd, jnp.full((Q, 1), 4.0))
-        cl.DEDUP_PAIRS = True
-        h_d = cl.intersect(cb, scene, ro, rd, tmin, tmax)
-        o_d = cl.occluded(cb, scene, ro, rd, jnp.full((Q, 1), 4.0))
-    finally:
-        cl.DEDUP_PAIRS = old
-    np.testing.assert_array_equal(np.asarray(h_r.hit), np.asarray(h_d.hit))
-    # Mosaic fma/ordering leaves ulp-level t deltas (same posture as
-    # test_pallas_pair_kernel_matches_xla); near-equal-t prim flips ride
-    # along with them.
-    np.testing.assert_allclose(np.asarray(h_r.t), np.asarray(h_d.t),
-                               rtol=1e-6, atol=1e-6)
-    m = np.asarray(h_r.hit)[:, 0]
-    same = np.asarray(h_r.prim) == np.asarray(h_d.prim)
-    assert same[m].mean() > 0.96
-    mm = m & same  # u/v comparable only where the same prim won
-    np.testing.assert_allclose(np.asarray(h_r.u)[mm], np.asarray(h_d.u)[mm],
-                               atol=1e-5)
-    np.testing.assert_allclose(np.asarray(h_r.v)[mm], np.asarray(h_d.v)[mm],
-                               atol=1e-5)
-    np.testing.assert_array_equal(np.asarray(o_r), np.asarray(o_d))
-
-
 def test_autotune_frontiers(setups):
     """Autotuned caps cover measured needs and stay traversal-correct."""
     scene, _ = setups["big"]
@@ -324,28 +261,87 @@ def test_split_traversal_bit_identical(setups, monkeypatch):
         np.testing.assert_array_equal(np.asarray(occ0), np.asarray(occ))
 
 
-def test_scan_reduce_matches_sort_reduce(setups):
-    """The Pallas segmented-scan reduce (USE_SCAN_REDUCE) is bit-identical
-    to the production sort reduce for both closest and any-hit — same
-    lowest-t / lowest-gid winner per ray (SURVEY.md §4 item 2)."""
+def _pair_case(case, seed=0):
+    """Synthetic (Q, K) candidate sets through the production flattening
+    (_flat_pairs), with per-(ray, cluster) test results chosen to stress
+    one property of the reduce."""
+    rng = np.random.default_rng(seed)
+    Q, K, C = 64, 6, 40
+    live = rng.random((Q, K)) < 0.6
+    if case == "no_pairs":
+        live[rng.random(Q) < 0.5] = False      # half the rays: no pairs
+    cand = np.stack([rng.permutation(C)[:K] for _ in range(Q)]).astype(
+        np.int32)
+    t_tab = rng.choice(np.float32([0.5, 1.0, 1.5, 2.0]), size=(Q, C))
+    if case == "ties":
+        t_tab[:] = rng.choice(np.float32([1.0, 2.0]), size=(Q, C))
+    miss = rng.random((Q, C)) < (0.6 if case == "anyhit" else 0.2)
+    t_tab = np.where(miss, cl.INF, t_tab).astype(np.float32)
+    g_tab = (np.arange(C, dtype=np.int32)[None, :] * 7919
+             + rng.integers(0, 5, (Q, 1), dtype=np.int32)) % 100003
+    u_tab = rng.random((Q, C), dtype=np.float32)
+    v_tab = rng.random((Q, C), dtype=np.float32)
+    budget = int(live.sum()) // 2 if case == "budget" else Q * K
+    rayP, cidP, _, cnt, lost = cl._flat_pairs(
+        jnp.asarray(cand), jnp.asarray(live), Q, budget)
+    if case == "budget":
+        assert int(np.asarray(lost).sum()) > 0
+    rayc = np.minimum(np.asarray(rayP), Q - 1)
+    cid = np.asarray(cidP)
+    ok = np.asarray(rayP) < Q
+    t_p = np.where(ok, t_tab[rayc, cid], cl.INF).astype(np.float32)
+    return (rayP, t_p, g_tab[rayc, cid], u_tab[rayc, cid], v_tab[rayc, cid],
+            cnt, Q)
+
+
+@pytest.mark.parametrize("case", ["ties", "no_pairs", "budget", "anyhit"])
+def test_pair_reduce_matches_numpy(case):
+    """The per-ray pair reduce against a numpy reference: equal-t ties go
+    to the lowest gid, rays with no pairs (or only misses) report no hit,
+    pairs past the budget are never read, any-hit is 'some pair hit'."""
+    rayP, t_p, g_p, u_p, v_p, cnt, Q = _pair_case(case)
+    ref = cl.pair_reduce_reference(rayP, t_p, g_p, u_p, v_p, Q)
+    got = jax.jit(cl._reduce_closest)(rayP, jnp.asarray(t_p),
+                                      jnp.asarray(g_p), jnp.asarray(u_p),
+                                      jnp.asarray(v_p), cnt)
+    for name, r, g in zip(("t", "gid", "u", "v"), ref[:4], got):
+        np.testing.assert_array_equal(r, np.asarray(g), err_msg=name)
+    occ = jax.jit(cl._reduce_anyhit)(rayP, jnp.asarray(t_p), cnt)
+    np.testing.assert_array_equal(ref[4], np.asarray(occ))
+    if case == "ties":  # the tie rule was exercised
+        assert (np.asarray(g_p)[np.asarray(t_p) == 1.0].size > 0)
+
+
+def test_traversal_reduce_matches_numpy(setups):
+    """The production pair list of a real traversal (big scene): the
+    traversal's reduce equals the numpy reference in t, gid, u, v and
+    occluded, bit for bit."""
     scene, cb = setups["big"]
-    ro, rd = _rays(2048, 29)
-    tmin = jnp.zeros((2048, 1))
-    tmax = jnp.full((2048, 1), 1e30)
-    old = cl.USE_SCAN_REDUCE
-    try:
-        cl.USE_SCAN_REDUCE = False
-        h0 = cl.intersect(cb, scene, ro, rd, tmin, tmax)
-        o0 = cl.occluded(cb, scene, ro, rd, tmax)
-        cl.USE_SCAN_REDUCE = True
-        h1 = cl.intersect(cb, scene, ro, rd, tmin, tmax)
-        o1 = cl.occluded(cb, scene, ro, rd, tmax)
-    finally:
-        cl.USE_SCAN_REDUCE = old
-    for f in ("t", "hit", "prim", "u", "v"):
-        np.testing.assert_array_equal(np.asarray(getattr(h0, f)),
-                                      np.asarray(getattr(h1, f)), err_msg=f)
-    np.testing.assert_array_equal(np.asarray(o0), np.asarray(o1))
+    cb = jax.tree.map(jnp.asarray, cb)
+    Q = 1024
+    ro, rd = _rays(Q, 29)
+    tmin = jnp.zeros((Q,))
+    tmax = jnp.full((Q,), 1e30)
+
+    @jax.jit
+    def pairs(cb, ro, rd):
+        cand, live, _ = cl._descend_compact(cb, ro, 1.0 / rd, tmin[:, None],
+                                            tmax[:, None])
+        rayP, cidP, _, cnt, _ = cl._flat_pairs(
+            cand, live, Q, int(cb.pair_mults[2] * Q))
+        t_p, u_p, v_p, g_p = cl._test_pair_batch(
+            cb, ro, rd, tmin, tmax, jnp.minimum(rayP, Q - 1), cidP,
+            rayP < Q)
+        return (rayP, t_p, g_p, u_p, v_p,
+                cl._reduce_closest(rayP, t_p, g_p, u_p, v_p, cnt),
+                cl._reduce_anyhit(rayP, t_p, cnt))
+
+    rayP, t_p, g_p, u_p, v_p, got, occ = pairs(cb, ro, rd)
+    ref = cl.pair_reduce_reference(rayP, t_p, g_p, u_p, v_p, Q)
+    assert ref[4].sum() > Q // 4                      # real hits exercised
+    for name, r, g in zip(("t", "gid", "u", "v"), ref[:4], got):
+        np.testing.assert_array_equal(r, np.asarray(g), err_msg=name)
+    np.testing.assert_array_equal(ref[4], np.asarray(occ))
 
 
 def test_device_build_refined_tiny_scene(setups):

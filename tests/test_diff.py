@@ -211,13 +211,13 @@ def test_steps_hint_matches_full_bound():
     must report done=False (the caller's signal to redo full-bound)."""
     import numpy as np
 
-    from tpu_pt.bvh.native import build_packed_any
+    from tpu_pt.bvh.native import build_packed
     from tpu_pt.diff.adjoint import loss_and_grad_wavefront
     from tpu_pt.diff.params import split
     from tpu_pt.scene import cornell
 
     scene = cornell.cornell("spheres")
-    pk = build_packed_any(scene)
+    pk = build_packed(scene)
     cfg = RenderConfig(width=16, height=16, spp=2, max_depth=3)
     cam = cornell.camera(16, 16)
     key = jax.random.key(2)

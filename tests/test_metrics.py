@@ -5,7 +5,7 @@ import json
 import jax
 import numpy as np
 
-from tpu_pt.bvh.native import build_packed_any
+from tpu_pt.bvh.native import build_packed
 from tpu_pt.config import RenderConfig
 from tpu_pt.render.metrics import (
     RenderReport, bvh_stats, queue_occupancy, scene_stats,
@@ -15,7 +15,7 @@ from tpu_pt.scene import cornell
 
 def test_scene_and_bvh_stats():
     scene = cornell.cornell("spheres")
-    packed = build_packed_any(scene)
+    packed = build_packed(scene)
     ss = scene_stats(scene)
     assert ss["tris"] == scene.n_tris and ss["spheres"] == 2
     bs = bvh_stats(packed)
@@ -24,7 +24,7 @@ def test_scene_and_bvh_stats():
 
 def test_queue_occupancy_drains():
     scene = cornell.cornell("empty")
-    packed = build_packed_any(scene)
+    packed = build_packed(scene)
     cfg = RenderConfig(width=8, height=8, spp=2, max_depth=2)
     occ = queue_occupancy(scene, cornell.camera(8, 8), cfg,
                           jax.random.key(0), packed, queue=64)

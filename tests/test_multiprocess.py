@@ -54,7 +54,7 @@ def test_two_process_grads_match_single_process():
             outs[1]["grad_sums"][k], rel=1e-5, abs=1e-10), k
 
     # And they match the single-process 8-device reference.
-    from tpu_pt.bvh.native import build_packed_any
+    from tpu_pt.bvh.native import build_packed
     from tpu_pt.config import RenderConfig
     from tpu_pt.diff.params import split
     from tpu_pt.dist.sharding import loss_and_grad_sharded, make_mesh
@@ -62,7 +62,7 @@ def test_two_process_grads_match_single_process():
     import jax
 
     scene = cornell.cornell("empty")
-    bvh = build_packed_any(scene)
+    bvh = build_packed(scene)
     cfg = RenderConfig(width=8, height=8, spp=2, max_depth=1, rr_start=9)
     cam = cornell.camera(cfg.width, cfg.height)
     key = jax.random.key(2)

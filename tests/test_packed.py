@@ -103,8 +103,6 @@ def test_native_builder_matches_python(setups):
     """Native C++ builder must produce traversal-equivalent tables."""
     from tpu_pt.bvh import native
 
-    if not native.available():
-        pytest.skip("native builder not built")
     scene, packed_py = setups["mesh"]
     packed_nat = native.build_packed(scene)
     assert packed_nat.n_nodes == packed_py.n_nodes

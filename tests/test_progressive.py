@@ -7,7 +7,7 @@ import jax
 import numpy as np
 import pytest
 
-from tpu_pt.bvh.native import build_packed_any
+from tpu_pt.bvh.native import build_packed
 from tpu_pt.config import RenderConfig
 from tpu_pt.render.progressive import render_progressive
 from tpu_pt.render.wavefront import render_wavefront
@@ -17,7 +17,7 @@ from tpu_pt.scene import cornell
 @pytest.fixture(scope="module")
 def setup():
     scene = cornell.cornell("spheres")
-    return scene, build_packed_any(scene)
+    return scene, build_packed(scene)
 
 
 def test_chunked_equals_oneshot(setup):

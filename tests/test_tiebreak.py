@@ -70,10 +70,10 @@ def test_flat_bvh_tiebreak(setup):
 
 def test_packed_tiebreak(setup):
     from tpu_pt.bvh import packed
-    from tpu_pt.bvh.native import build_packed_any
+    from tpu_pt.bvh.native import build_packed
 
     scene, ro, rd, t_min, t_max, ref = setup
-    pk = build_packed_any(scene)
+    pk = build_packed(scene)
     _check(ref, packed.intersect(pk, scene, ro, rd, t_min, t_max))
 
 
@@ -93,7 +93,7 @@ def test_cluster_tiebreak(setup, mode):
 
 
 def test_cluster_lanes_gid_sorted(setup):
-    """Build invariant behind the Pallas kernels' first-lane rule: tile
+    """Build invariant behind the pair test's first-lane argmin rule: tile
     lanes are gid-ascending (real lanes)."""
     from tpu_pt.bvh import cluster as cl
 

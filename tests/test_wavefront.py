@@ -143,3 +143,30 @@ class TestStepBound:
                                        4096, "bvh", 0, cfg.n_pixels,
                                        fast=True, step_slices=2))
         np.testing.assert_array_equal(a, b)
+
+
+def test_render_wavefront_checked_passes_and_catches_poison():
+    """debug_checks render: clean scene passes every invariant; a
+    NaN-poisoned vertex trips the checkify error."""
+    import jax.numpy as jnp
+    from jax.experimental import checkify
+
+    from tpu_pt.bvh.native import build_packed
+    from tpu_pt.render.wavefront import render_wavefront_checked
+
+    scene = cornell.cornell("spheres")
+    pk = build_packed(scene)
+    cfg = RenderConfig(width=16, height=16, spp=2, max_depth=2)
+    cam = cornell.camera(16, 16)
+    key = jax.random.key(0)
+    img = render_wavefront_checked(scene, cam, cfg, key, pk, queue=256,
+                                   backend="packed")
+    ref = render_wavefront(scene, cam, cfg, key, pk, queue=256,
+                           backend="packed", fast=False)
+    np.testing.assert_array_equal(np.asarray(img), np.asarray(ref))
+
+    bad = scene._replace(
+        vertices=jnp.asarray(scene.vertices).at[0].set(jnp.nan))
+    with pytest.raises(checkify.JaxRuntimeError):
+        render_wavefront_checked(bad, cam, cfg, key, pk, queue=256,
+                                 backend="packed")

@@ -1,13 +1,12 @@
 """Ablate the differentiable wavefront step to find the backward bottleneck.
 
-BASELINE.md (config 4) records 4.0k rays/s for the grad pass vs 561k forward
-— ~100x, where remat should cost ~3x.  This measures, on the real chip at the
-BENCH_GRAD config (big-1m, 256^2, q4096):
+Remat should make the grad pass cost ~3x the forward.  This measures, on
+the GPU at the BENCH_GRAD config (big-1m, 256^2, q4096):
 
   A. forward fast=True   (early-exit while_loop)     — production forward
   B. forward fast=False  (remat chunked scan, no AD) — scan/remat structure
   C. grad, geometry detached (albedo/emission/light only)
-  D. grad, full params                               — the 43 s number
+  D. grad, full params
 
 If C ~ D, the vertex/normal scatter-adds are NOT the problem and the cost is
 in the chunked-scan adjoint structure itself; if B is already slow, it's the
@@ -48,7 +47,7 @@ def main():
     def timed(name, fn, *args):
         t0 = time.time()
         out = fn(*args)
-        jax.tree.map(lambda x: np.asarray(x).ravel()[:1], out)  # fetch-sync
+        jax.tree.map(lambda x: np.asarray(x).ravel()[:1], out)  # sync by fetching
         t_c = time.time() - t0
         t0 = time.time()
         out = fn(*args)

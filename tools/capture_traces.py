@@ -10,7 +10,7 @@ Produces, on the 8-virtual-device CPU mesh:
      and while/body), i.e. one collective per remat chunk interleaved
      with adjoint compute — NOT a tail reduction.
 
-Run: python tools/capture_traces.py   (forces CPU; safe anywhere)
+Run: PYTHONPATH=. python tools/capture_traces.py   (forces CPU; safe anywhere)
 """
 
 from __future__ import annotations
@@ -31,14 +31,14 @@ import numpy as np
 
 
 def main():
-    from tpu_pt.bvh.native import build_packed_any
+    from tpu_pt.bvh.native import build_packed
     from tpu_pt.config import RenderConfig
     from tpu_pt.diff.params import split
     from tpu_pt.dist.sharding import loss_and_grad_sharded, make_mesh
     from tpu_pt.scene import cornell
 
     scene = cornell.cornell("spheres")
-    bvh = build_packed_any(scene)
+    bvh = build_packed(scene)
     cfg = RenderConfig(width=16, height=16, spp=4, max_depth=2)
     cam = cornell.camera(16, 16)
     mesh = make_mesh()

@@ -12,7 +12,7 @@ The drain tail is the irreducible cost: even a perfectly balanced shard
 idles while the slowest shard finishes its last partial queue, bounded by
 ~max_depth extra steps.
 
-Run: python tools/measure_balance.py   (CPU; conftest-style 8-dev mesh)
+Run: PYTHONPATH=. python tools/measure_balance.py   (CPU; conftest-style 8-dev mesh)
 Knobs: MB_SIZE (256), MB_SPP (1), MB_QUEUE (2048), MB_SCENE (atrium).
 """
 

@@ -1,9 +1,10 @@
-"""Microbenchmark the pair-major descent's components on TPU.
+"""Microbenchmark the pair-major descent's components.
 
 Times: 1-D flat pair sorts at the real sizes, the per-level child block
 gathers, the per-pair ray gathers, and the three descent levels in
-isolation — to find where _descend_pairs' 10.4 ms (vs the 2.8 ms model)
-actually goes.
+isolation — to find where _descend_pairs' time goes.
+
+Run: PYTHONPATH=. python tools/microbench_pairs.py
 """
 
 from __future__ import annotations

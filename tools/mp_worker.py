@@ -39,14 +39,14 @@ def main():
     import jax.numpy as jnp
     import numpy as np
 
-    from tpu_pt.bvh.native import build_packed_any
+    from tpu_pt.bvh.native import build_packed
     from tpu_pt.config import RenderConfig
     from tpu_pt.diff.params import split
     from tpu_pt.dist.sharding import loss_and_grad_sharded, make_mesh
     from tpu_pt.scene import cornell
 
     scene = cornell.cornell("empty")
-    bvh = build_packed_any(scene)
+    bvh = build_packed(scene)
     cfg = RenderConfig(width=8, height=8, spp=2, max_depth=1, rr_start=9)
     cam = cornell.camera(cfg.width, cfg.height)
     key = jax.random.key(2)

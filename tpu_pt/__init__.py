@@ -1,6 +1,6 @@
-"""tpu_pt — TPU-native differentiable wavefront path tracer.
+"""tpu_pt — differentiable wavefront path tracer in JAX.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of the reference
+A from-scratch JAX/XLA re-design of the capabilities of the reference
 ``Khrylx/DSGPURayTracing`` (a CUDA + distributed GPU path tracer built on the
 CMU 15-462 asst3 "PathTracer" codebase; see SURVEY.md — the reference mount
 was empty, so citations are to SURVEY.md sections instead of file:line).

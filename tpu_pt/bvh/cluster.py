@@ -1,29 +1,25 @@
-"""Cluster BVH — the TPU-shaped acceleration structure.
+"""Cluster BVH — the production acceleration structure.
 
-Why this exists (measured on TPU v5e, see git history): the classic per-ray
-stackless BVH walk (bvh/packed.py) is bound by per-lane row gathers from an
-HBM table (~97 us per 4096x64B gather) inside a lock-stepped ``while_loop``
-(~hundreds of max-over-lanes iterations), landing at ~10^4 rays/s.  TPUs are
-the inverse of GPUs here: random gathers are the weakness, dense (8,128)
-vector math and contiguous block DMA are the strengths.  So instead of
-porting the reference's per-thread traversal (SURVEY.md §3.2 "iterative BVH
-traversal ... one thread/pixel"), the scene is re-shaped for the VPU:
+The classic per-ray stackless BVH walk (bvh/packed.py) is a lock-stepped
+``while_loop`` of per-lane row gathers: every iteration waits for the
+slowest lane.  Instead of the reference's per-thread traversal (SURVEY.md
+§3.2 "iterative BVH traversal ... one thread/pixel"), the scene is
+re-shaped for dense, static-shape XLA work:
 
   1. **Clusters**: SAH leaves of <=TILE (128) primitives, pretransformed to
      a (C, 12, 128) tile tensor — prim lane = minor axis, so one cluster is
-     a 6 KB contiguous block and Möller–Trumbore over a whole tile is pure
-     (.., 128)-lane VPU math (measured 3.3G prim tests/s).
+     a 6 KB contiguous block and Möller–Trumbore over a whole tile is
+     dense (.., 128)-lane math.
   2. **Implicit 8-ary level pyramid** over cluster AABBs: level l+1 packs
      the 8 children of node i at rows [8i, 8i+8), so the traversal needs NO
      index tables at all — child fetch is a contiguous block gather.
   3. **Level-synchronous frontier traversal**: every ray carries a fixed-F
      frontier of live nodes per level; each descent step is one block
-     gather + a dense (Q, F, 8) slab test + one lane-axis sort (t-ascending
-     compaction).  No data-dependent while_loop, ~4 dense steps total.
+     gather + a dense (Q, F, 8) slab test + one compaction.  No
+     data-dependent while_loop, ~4 dense steps total.
   4. **Pair compaction + dense intersection**: (ray, cluster) candidates are
      compacted by one stable sort, tiles fetched with one big contiguous
-     block gather, intersected densely, and reduced per-ray with a
-     segmented-min ``associative_scan``.
+     block gather, intersected densely, and reduced per ray.
 
 Capacity contract: frontier widths F and the leaf candidate count K are
 static compile-time knobs.  Truncation is *counted* (``candidate_stats``)
@@ -37,25 +33,25 @@ Reference parity: replaces BVHAccel::intersect / the CUDA intersect_bvh
 
 from __future__ import annotations
 
+import functools
 from typing import Sequence
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 
-from tpu_pt.bvh.sah import build_bvh
 from tpu_pt.core.intersect import INF
 from tpu_pt.render.brute import Hit
 from tpu_pt.scene.types import Scene
 
-TILE = 128  # primitives per cluster (= VPU lane width)
+TILE = 128  # primitives per cluster (the tile tensor's minor axis)
 
 
 def _bf16_outward(lo: np.ndarray, hi: np.ndarray):
     """Round AABBs OUTWARD onto the bf16 grid (lo down, hi up) so that a
     bf16 slab test can only produce false POSITIVES, never a false miss —
     candidate selection stays exact while the gathered level tables halve
-    in bytes (the dominant descent cost: 256B block gathers at ~12 GB/s).
+    in bytes (the descent's child fetches are small random block gathers).
 
     Works in bf16 magnitude-bit space: truncating an f32 to its high 16
     bits rounds toward zero, so the needed 1-ulp nudge is sign-dependent.
@@ -149,8 +145,8 @@ class ClusterBVH:
         # measured worst block = 23,312 candidates at Q=4096 -> mult 6).
         # The 4th entry is the NARROW any-hit pair budget: in steady state
         # shadow batches carry useful rays on only ~half their lanes
-        # (BENCH r4: n_shadow ≈ 0.49·n_closest), so ~2/3 of the leaf mult
-        # holds them (bench: 4 vs 6, +8% headline).  Batches that exceed
+        # (n_shadow ≈ 0.49·n_closest on the bench), so ~2/3 of the leaf
+        # mult holds them (bench: 4 vs 6).  Batches that exceed
         # it — e.g. the fully-occupied wide-angle step-0 shadow wave of a
         # small render, measured needing mult 5 at 128² — take the WIDE
         # rung (pair_mults[2]) of the runtime budget ladder
@@ -239,30 +235,19 @@ def build_cluster_bvh(scene: Scene, tile: int = TILE,
                       pair_budget: int | None = None,
                       dense_start: int = 512,
                       pair_mults: Sequence[int] | None = None) -> ClusterBVH:
-    """Host build: SAH leaves (<=tile prims) -> padded tile tensor +
-    implicit 8-ary AABB pyramid (all numpy; upload via device_put).
-    Uses the native C++ SAH builder when present (10x host build speed)."""
+    """Host build: SAH leaves (<=tile prims) from the native C++ builder
+    -> padded tile tensor + implicit 8-ary AABB pyramid (all numpy; upload
+    via device_put)."""
     from tpu_pt.bvh import native
 
-    leaves = native.build_leaves(scene, max_leaf=tile)
-    if leaves is not None:
-        start, cnt, lo, hi, pid = leaves
-    else:
-        bvh = build_bvh(scene, max_leaf=tile)
-        count = np.asarray(bvh.prim_count)
-        leaf = np.flatnonzero(count > 0)
-        start = np.asarray(bvh.prim_start)[leaf]
-        cnt = count[leaf]
-        lo = np.asarray(bvh.node_min)[leaf]
-        hi = np.asarray(bvh.node_max)[leaf]
-        pid = np.asarray(bvh.prim_ids)
+    start, cnt, lo, hi, pid = native.build_leaves(scene, max_leaf=tile)
     C = len(start)
 
     # Tile tensor: (C, 12, tile) with zero padding (zero rows never hit:
     # zero edges => det 0 for triangles, radius 0 for spheres).  Lanes are
-    # sorted by gid within each cluster so "first lane at min t" — the rule
-    # the Pallas kernels use — IS the lowest-gid tie-break (SURVEY.md §4
-    # item 2).
+    # sorted by gid within each cluster so "first lane at min t" — the
+    # argmin rule of the pair test — IS the lowest-gid tie-break (SURVEY.md
+    # §4 item 2).
     rows_all = _prim_lane_rows(scene, pid)  # (P, 12) in leaf order
     rows = np.zeros((C, tile, 12), np.float32)
     gid = np.zeros((C, tile), np.int32)
@@ -277,8 +262,8 @@ def build_cluster_bvh(scene: Scene, tile: int = TILE,
     # 8x the rows of level l (the ladder N0, 8*N0, 64*N0, ... >= C); slots
     # beyond real nodes are empty AABBs (min=+INF > max=-INF, never hit).
     # The top level is tested DENSELY against every ray (a (Q, N0) slab test
-    # costs ~nothing on the VPU), so it can be hundreds of nodes wide —
-    # every level it replaces removes a block-gather + sort step.
+    # is cheap elementwise math), so it can be hundreds of nodes wide —
+    # every level it replaces removes a block-gather + compaction step.
     n_levels = 1
     top = C
     while top > dense_start:
@@ -560,8 +545,7 @@ def _descend(cb: ClusterBVH, ro, rd_inv, t_min, t_max):
         # non-negative floats), so the returned entry-t is a conservative
         # lower bound and best-t pruning stays exact.  INF is a finite
         # sentinel (1e30) whose truncation is 9.953e29 — snap it back, or
-        # every miss would read as a hit.  A single-operand (bf16<<16|idx)
-        # packed sort was also tried and measured SLOWER on v5e.
+        # every miss would read as a hit.
         te16 = jax.lax.convert_element_type(
             jax.lax.bitcast_convert_type(
                 jax.lax.bitcast_convert_type(te, jnp.int32)
@@ -580,9 +564,8 @@ def _descend(cb: ClusterBVH, ro, rd_inv, t_min, t_max):
         overflow += ovf
 
     for l in range(1, len(levels)):
-        # Gather children as FLAT (64,) rows — measured 2.6x faster than
-        # (8, 8)-shaped block gathers on v5e — from the bf16 outward-
-        # rounded tables (half the bytes, conservative: no lost hits).
+        # Gather children as FLAT (64,) rows from the bf16 outward-rounded
+        # tables (half the bytes, conservative: no lost hits).
         src = cb.levels16[l] if GATHER_BF16 else levels[l]
         child = src.reshape(-1, 64)
         blk = child[jnp.maximum(idx, 0)].astype(jnp.float32).reshape(
@@ -600,7 +583,7 @@ def _descend(cb: ClusterBVH, ro, rd_inv, t_min, t_max):
 def _prim_tile_test(tile, ro, rd, t_min, t_max):
     """Dense MT + sphere test of rays vs their tile.  tile: (P, 12, L);
     ro/rd: (P, 3); t bounds (P, 1).  Returns (t (P, L), u, v) with INF on
-    miss — all lane-axis VPU math, no gathers."""
+    miss — all dense lane-axis math, no gathers."""
     v0 = tile[:, 0:3, :]
     e1 = tile[:, 3:6, :]
     e2 = tile[:, 6:9, :]
@@ -683,41 +666,11 @@ def _seg_min(t, seg_start, gid=None):
     return mt, mi
 
 
-# Fused Pallas pair-tile kernel (tpu_pt/kernels/cluster_isect.py): streams
-# tiles HBM->VMEM by cluster id instead of materializing the (P, 12, 128)
-# gather.  Measured on v5e (1M-tri bench): 295k rays/s vs 330k for the XLA
-# block-gather — per-tile DMAs don't beat XLA's pipelined gather at 6KB
-# granularity, so XLA stays the default; the kernel remains a supported,
-# tested backend (flip this flag) and the base for a future
-# sorted-by-cluster variant that dedupes tile fetches.
-USE_PALLAS_PAIRS = False
-
-
 def _test_pair_batch(cb: ClusterBVH, ro, rd, t_min1, t_max1, ray_c, cid_c,
                      pair_ok):
     """Dense tile intersection of a flat pair batch.  Returns per-pair
     (t (P,), u, v, gid) with INF on miss."""
     cid_c = jnp.clip(cid_c, 0, cb.n_clusters - 1)
-    P = cid_c.shape[0]
-    if USE_PALLAS_PAIRS and cb.tiles.shape[1] == 12 \
-            and cb.tiles.shape[2] == 128:
-        from tpu_pt.kernels.cluster_isect import B as PBLK, pair_tile_isect
-
-        pad = (-P) % PBLK
-        cid_p = jnp.concatenate(
-            [cid_c, jnp.zeros((pad,), cid_c.dtype)]) if pad else cid_c
-        rays = jnp.zeros((P + pad, 16), jnp.float32)
-        rays = rays.at[:P, 0:3].set(ro[ray_c])
-        rays = rays.at[:P, 3:6].set(rd[ray_c])
-        rays = rays.at[:P, 6].set(t_min1[ray_c])
-        rays = rays.at[:P, 7].set(t_max1[ray_c])
-        rays = rays.at[:P, 8].set(pair_ok.astype(jnp.float32))
-        out = pair_tile_isect(cb.tiles, cid_p, rays)[:P]
-        t_pair = out[:, 0]
-        lane = out[:, 1].astype(jnp.int32)
-        return (t_pair, out[:, 2], out[:, 3],
-                cb.tile_gid[cid_c, jnp.clip(lane, 0, 127)])
-
     tile = cb.tiles[cid_c]                          # (P, 12, L) block gather
     t_lane, u_lane, v_lane = _prim_tile_test(
         tile, ro[ray_c], rd[ray_c], t_min1[ray_c][:, None],
@@ -835,18 +788,13 @@ def _traverse(cb: ClusterBVH, scene: Scene, ro, rd, t_min, t_max):
 
 
 # ---------------------------------------------------------------------------
-# Pair-major traversal (production path, r2)
+# Pair-major traversal ("pairs" mode)
 #
-# Profiling (tools/microbench_select.py, TPU v5e) showed the per-ray
-# frontier design pays ~5 ms/traverse in 256-byte child-AABB block gathers
-# that run at only 12-14 GB/s, plus ~2.4 ms in three per-ray lane sorts.
-# The fix: after a dense top-level slab test, traversal state becomes ONE
-# flat, ray-sorted list of live (ray, node) pairs.  Compaction between
-# levels is a cheap 1-D key sort (131k keys ≈ 0.15 ms), children are
-# gathered only for LIVE pairs (4 MB instead of 40 MB), and at the leaf
-# every live (ray, cluster) candidate is tile-tested outright — testing
-# ~2 tiles/ray densely is cheaper than sorting candidates to prune them,
-# and it is exact by construction (no best-t feedback rounds needed).
+# After a dense top-level slab test, traversal state becomes ONE flat,
+# ray-sorted list of live (ray, node) pairs.  Compaction between levels is
+# a 1-D key sort, children are gathered only for LIVE pairs, and at the
+# leaf every live (ray, cluster) candidate is tile-tested outright — exact
+# by construction (no best-t feedback rounds needed).
 # ---------------------------------------------------------------------------
 
 
@@ -886,7 +834,7 @@ def _descend_pairs(cb: ClusterBVH, ro, rd_inv, t_min1, t_max1):
     for l in range(1, len(levels)):
         keep = (m_leaf if l == len(levels) - 1 else m_mid) * Q
         src = cb.levels16[l] if GATHER_BF16 else levels[l]
-        child = src.reshape(-1, 64)  # flat rows gather 2.6x faster on v5e
+        child = src.reshape(-1, 64)  # flat (64,) rows per sibling block
         rayPc = jnp.minimum(rayP, Q - 1)
         blk = child[jnp.clip(nodeP, 0, child.shape[0] - 1)].astype(
             jnp.float32).reshape(-1, 8, 8)                 # (P, 8, 8)
@@ -1028,36 +976,17 @@ def _traverse_anyhit(cb: ClusterBVH, ro, rd, t_min, t_max):
 
 
 # ---------------------------------------------------------------------------
-# Sort-free compaction traversal (r2 production).
+# Sort-free compaction traversal ("compact" mode, production).
 #
-# Stage profiling on the 1.3M-tri bench (tools/profile_stages.py, TPU v5e,
-# Q=4096) showed the r1 frontier walk spends 2.45 ms of its 3.42 ms descent
-# in three per-ray LANE SORTS (bf16 key + i32 payload at (Q,233)/(Q,184)/
-# (Q,304)), plus ~2 ms in the best-t feedback while_loop — while the tile
-# gather + dense MT pair stage costs only 0.84 ms.  Sorting was only ever
-# needed for (a) keeping the NEAREST candidates under truncation and (b)
-# making best-t pruning exact; if the leaf stage simply tests EVERY live
-# candidate (measured ~2 candidates/ray — one flat batch), neither needs
-# ORDER, only COMPACTION.  1-bit compaction is sort-free: an inclusive
-# cumsum ranks the live lanes and a fused one-hot reduction places them —
-# dense (Q, N, cap) VPU math, no gathers, no comparator passes.
+# The frontier walk sorts every level's candidates per ray, and its best-t
+# feedback loop is data-dependent.  Sorting is only needed for (a) keeping
+# the NEAREST candidates under truncation and (b) making best-t pruning
+# exact; if the leaf stage simply tests EVERY live candidate (~2 per ray on
+# the bench scene — one flat batch), neither needs ORDER, only COMPACTION.
+# 1-bit compaction is sort-free: an inclusive prefix sum ranks the live
+# lanes and a fused one-hot reduction places them — dense (Q, N, cap)
+# math, no gathers, no comparator passes.
 # ---------------------------------------------------------------------------
-
-
-def _rank_inclusive(live):
-    """Per-row inclusive rank of live lanes: rank[q, i] = #live in
-    live[q, :i+1].  Computed as a matmul against a triangular-ones matrix —
-    the MXU does the prefix sum in one pass (measured ~10x XLA's lane-axis
-    ``jnp.cumsum``, which lowers to log N shifted-add passes; see
-    tools/microbench_compact.py).  0/1 bf16 inputs with f32 accumulation
-    are exact for any N < 2^24."""
-    n = live.shape[1]
-    tri = jnp.tril(jnp.ones((n, n), jnp.bfloat16))  # tri[i, j] = [j <= i]
-    return jax.lax.dot_general(
-        live.astype(jnp.bfloat16), tri,
-        dimension_numbers=(((1,), (1,)), ((), ())),
-        preferred_element_type=jnp.float32,
-    ).astype(jnp.int32)
 
 
 def _compact_lanes(live, idx, cap: int):
@@ -1068,11 +997,14 @@ def _compact_lanes(live, idx, cap: int):
     live lanes beyond cap, dropped).  out[q, j] = idx of the (j+1)-th live
     lane, via out[q, j] = sum_i idx[q, i] * [rank[q, i] == j+1]; the
     (Q, N, cap) one-hot product fuses into the reduction (never
-    materialized), costing ~N*cap VPU mult-adds per ray — measured well
-    under the lane sorts it replaces."""
+    materialized), costing ~N*cap mult-adds per ray."""
     n = live.shape[1]
     cap = min(cap, n)
-    rank = _rank_inclusive(live)                           # (Q, N) inclusive
+    # Inclusive rank of the live lanes, an exact int32 prefix sum.  (A bf16
+    # matmul against a triangular-ones matrix gives the same ranks; on the
+    # GPU, XLA's Triton matmul emitter aborted compiling it inside the
+    # traversal, and with that emitter off it ran the bench cell slower.)
+    rank = jnp.cumsum(live.astype(jnp.int32), axis=1)
     total = rank[:, -1]
     onehot = (live & (rank <= cap))[:, :, None] & (
         rank[:, :, None] == jnp.arange(1, cap + 1, dtype=jnp.int32)[None, None, :])
@@ -1087,10 +1019,8 @@ def _slab_soa(blo, bhi, ro, rd_inv, t_min, t_max):
 
     Same math and float semantics as :func:`_slab` (max/min are exact, so
     reassociating the axis reduction is bit-identical) — but every
-    intermediate is a (Q, N) array with the CANDIDATE axis minor, mapping
-    onto the 128-lane VPU dimension.  The AoS form broadcast to (Q, N, 3)
-    puts 3 in the lane dim (padded to 128): measured ~4x slower at the
-    descent shapes (tools/microbench_compact.py, v5e)."""
+    intermediate is a (Q, N) array with the CANDIDATE axis minor, instead
+    of the AoS form's (Q, N, 3) with a length-3 minor axis."""
     t0 = t_min
     t1 = t_max
     for i in range(3):
@@ -1137,8 +1067,8 @@ def _descend_compact(cb: ClusterBVH, ro, rd_inv, t_min, t_max,
         src = cb.levels16[l] if GATHER_BF16 else levels[l]
         # Field-major sibling rows: row r = [f0 of children 0..7, f1 of
         # children 0..7, ...] so a field slice of the gathered block keeps
-        # the 8 children minor (VPU lanes).  The relayout is loop-invariant
-        # (hoisted by XLA) and ~2 us of bandwidth even when it isn't.
+        # the 8 children minor.  The relayout is loop-invariant (hoisted by
+        # XLA).
         child = src.reshape(-1, 8, 8).transpose(0, 2, 1).reshape(-1, 64)
         blk = child[jnp.clip(cand, 0, child.shape[0] - 1)]  # (Q, cap, 64)
         K8 = cand.shape[1] * 8
@@ -1163,16 +1093,10 @@ def _descend_compact(cb: ClusterBVH, ro, rd_inv, t_min, t_max,
 
 
 def _flat_pairs(cand, live, Q: int, budget: int):
-    """(Q, K) compacted candidates -> ray-sorted flat pair list.
-    Returns (rayP (budget,), cidP (budget,), dropped scalar).
-
-    The flatten itself is the proven 1-D stable sort (_flatten_live;
-    ~0.54 ms at the bench shape — an expand-primitive variant built from
-    scatter+cumsum+2-D-gather measured no faster end-to-end and blew XLA
-    compile time up 7x, so the sort stays).  The reduce stage's segment
-    addressing (cnt/right: ray q's pairs occupy [right-cnt, right)) comes
-    from plain row sums — replacing two jnp.searchsorted calls measured
-    2x slower (tools/microbench_compact.py)."""
+    """(Q, K) compacted candidates -> ray-sorted flat pair list (a 1-D
+    stable sort, _flatten_live).  Returns (rayP (budget,), cidP (budget,),
+    dropped scalar, cnt (Q,) pairs kept per ray, lost (Q,) pairs per ray
+    dropped past the budget)."""
     arq = jnp.arange(Q, dtype=jnp.int32)
     key = jnp.where(live, arq[:, None], Q)
     rayP, cidP, dropped = _flatten_live(key.reshape(-1), cand.reshape(-1),
@@ -1182,148 +1106,72 @@ def _flat_pairs(cand, live, Q: int, budget: int):
     base = right - cnt
     right_c = jnp.minimum(right, budget)
     cnt_c = jnp.maximum(right_c - jnp.minimum(base, budget), 0)
-    lost = cnt - cnt_c                                   # per-ray drops
-    return rayP, cidP, dropped, cnt_c, right_c, lost
+    return rayP, cidP, dropped, cnt_c, cnt - cnt_c
 
 
-def _reduce_pairs_closest(cb, ro, rd, t_min1, t_max1, rayP, cidP, cnt,
-                          right):
-    """Tile-test a ray-sorted pair list and reduce to per-ray nearest.
-    Exact: every pair is tested.  cnt/right: per-ray pair counts and
-    inclusive-cumsum end positions (from _flat_pairs — ray q's pairs
-    occupy [right-cnt, right)).  Returns (best_t (Q,), gid, u, v).
+def _reduce_closest(rayP, t_p, g_p, u_p, v_p, cnt):
+    """Per-ray nearest hit over a ray-major pair list.
 
-    The reduce is ONE multi-key sort: the pair list is already ray-major,
-    so sorting by (ray, t, gid) puts each ray's winning pair — nearest t,
-    lowest gid at ties (SURVEY.md §4 item 2) — at its segment head, read
-    back by a (Q,) gather at the known segment starts.  Measured 0.70 ms
-    vs 2.6 ms for the r2-era (Q, k_leaf) elementwise gather-back and
-    1.6 ms for a scatter-min chain (tools/microbench_reduce.py, v5e)."""
-    Q = ro.shape[0]
+    rayP (P,): ray id of each pair (sentinel Q past the live pairs); t_p,
+    g_p, u_p, v_p: per-pair test results (t INF on miss); cnt (Q,): per-ray
+    pair counts (from _flat_pairs).  The winner is the lowest t, ties broken
+    by the LOWEST gid (SURVEY.md §4 item 2).  Returns (best_t (Q,), gid, u,
+    v); rays without a hit get (INF, 0, 0, 0).
+
+    Two-pass segment min (then a third for the winning pair's position):
+    min is order-independent, so the scatter-min passes are deterministic
+    whatever order the GPU's atomics run in.  On the H100 this beat a
+    3-key sort of the pair list and a lax.associative_scan segmented min
+    end to end (PERF.md); all three are bit-identical."""
+    Q = cnt.shape[0]
     P = rayP.shape[0]
-    pair_ok = rayP < Q
-    rayPc = jnp.minimum(rayP, Q - 1)
-    t_p, u_p, v_p, g_p = _test_pair_batch(
-        cb, ro, rd, t_min1, t_max1, rayPc, cidP, pair_ok)
-    g_key = jnp.where(t_p < INF, g_p, jnp.int32(2**31 - 1))
-    _, tS, gS, uS, vS = jax.lax.sort(
-        (rayP, t_p, g_key, u_p, v_p), dimension=0, num_keys=3)
-    head = jnp.minimum(right - cnt, P - 1)                 # segment starts
-    best_t = tS[head]
+    seg_min = functools.partial(jax.ops.segment_min, segment_ids=rayP,
+                                num_segments=Q + 1, indices_are_sorted=True)
+    no_gid = jnp.int32(2**31 - 1)
+    g_key = jnp.where(t_p < INF, g_p, no_gid)
+    best_t = seg_min(t_p)                   # (Q+1,): row Q collects padding
+    at_t = t_p == best_t[rayP]
+    best_g = seg_min(jnp.where(at_t, g_key, no_gid))
+    pos = seg_min(jnp.where(at_t & (g_key == best_g[rayP]),
+                            jnp.arange(P, dtype=jnp.int32), P))
+    win = jnp.clip(pos[:Q], 0, P - 1)
+    best_t, best_g = best_t[:Q], best_g[:Q]
     has = (cnt > 0) & (best_t < INF)
-    best_t = jnp.where(has, best_t, INF)
-    best_g = jnp.where(has, gS[head], 0)
-    best_u = jnp.where(has, uS[head], 0.0)
-    best_v = jnp.where(has, vS[head], 0.0)
-    return best_t, best_g, best_u, best_v
+    return (jnp.where(has, best_t, INF), jnp.where(has, best_g, 0),
+            jnp.where(has, u_p[win], 0.0), jnp.where(has, v_p[win], 0.0))
 
 
-# Pallas segmented-scan reduce (r5): replace the closest reduce's 5-field
-# 3-key sort and the any-hit reduce's scatter-add with one streaming
-# segmented (t, gid)-min scan over the ray-major pair list
-# (kernels/pair_scan.py) + a (Q,) segment-end gather.  Exact: the
-# lexicographic min is associative, so the scan picks the bit-identical
-# winner (lowest t, then lowest gid — SURVEY.md §4 item 2).  Default ON
-# (r5 gate record: bit-identical on the equivalence tests; stage-level
-# parity on tools/profile_scan_reduce.py, closest 4.538 vs 4.529 ms;
-# WINS the full bench 819,170 vs 808,203 rays/s exact — the removed
-# sort also relieves XLA scheduling in the full-step pipeline).
-USE_SCAN_REDUCE = True
+def _reduce_anyhit(rayP, t_p, cnt):
+    """Per-ray occlusion over a ray-major pair list: a ray is occluded iff
+    any of its pairs hit (t_p < INF).  Arguments as in _reduce_closest;
+    returns (Q,) bool."""
+    Q = cnt.shape[0]
+    hit = ((t_p < INF) & (rayP < Q)).astype(jnp.int32)
+    n_hit = jax.ops.segment_max(hit, rayP, num_segments=Q + 1,
+                                indices_are_sorted=True)[:Q]
+    return (cnt > 0) & (n_hit > 0)
 
 
-def _scan_supported(cb: ClusterBVH, Q: int) -> bool:
-    # gid and ray ids ride f32 lanes in the kernel — exact below 2^24.
-    return cb.n_clusters * cb.tiles.shape[2] < (1 << 24) and Q < (1 << 24)
-
-
-def _reduce_pairs_closest_scan(cb, ro, rd, t_min1, t_max1, rayP, cidP, cnt,
-                               right):
-    """Scan-kernel form of _reduce_pairs_closest: same inputs, same
-    bit-exact outputs, no sort."""
-    from tpu_pt.kernels.pair_scan import B as SB, pair_segmin_scan
-
-    Q = ro.shape[0]
-    P = rayP.shape[0]
-    pair_ok = rayP < Q
-    rayPc = jnp.minimum(rayP, Q - 1)
-    t_p, u_p, v_p, g_p = _test_pair_batch(
-        cb, ro, rd, t_min1, t_max1, rayPc, cidP, pair_ok)
-    z = jnp.zeros_like(t_p)
-    f = jnp.stack([t_p, g_p.astype(jnp.float32), u_p, v_p,
-                   rayP.astype(jnp.float32), z, z, z], axis=0)
-    pad = (-P) % SB
-    if pad:
-        padcol = jnp.zeros((8, pad), jnp.float32)
-        padcol = padcol.at[0].set(INF).at[4].set(-2.0)
-        f = jnp.concatenate([f, padcol], axis=1)
-    scanned = pair_segmin_scan(f)
-    idx = jnp.clip(right - 1, 0, P + pad - 1)     # segment-end columns
-    best_t = scanned[0, idx]
-    has = (cnt > 0) & (best_t < INF)
-    return (jnp.where(has, best_t, INF),
-            jnp.where(has, scanned[1, idx].astype(jnp.int32), 0),
-            jnp.where(has, scanned[2, idx], 0.0),
-            jnp.where(has, scanned[3, idx], 0.0))
-
-
-def _reduce_pairs_anyhit_scan(cb, ro, rd, t_min1, t_max1, rayP, cidP, cnt,
-                              right):
-    """Scan-kernel any-hit reduce: occluded iff the ray's segment-end
-    scanned t is a hit (replaces the per-ray scatter-add)."""
-    from tpu_pt.kernels.pair_scan import B as SB, pair_segmin_scan
-
-    Q = ro.shape[0]
-    P = rayP.shape[0]
-    pair_ok = rayP < Q
-    rayPc = jnp.minimum(rayP, Q - 1)
-    t_p, _, _, _ = _test_pair_batch(
-        cb, ro, rd, t_min1, t_max1, rayPc, cidP, pair_ok)
-    z = jnp.zeros_like(t_p)
-    f = jnp.stack([t_p, z, z, z, rayP.astype(jnp.float32), z, z, z], axis=0)
-    pad = (-P) % SB
-    if pad:
-        padcol = jnp.zeros((8, pad), jnp.float32)
-        padcol = padcol.at[0].set(INF).at[4].set(-2.0)
-        f = jnp.concatenate([f, padcol], axis=1)
-    scanned = pair_segmin_scan(f)
-    idx = jnp.clip(right - 1, 0, P + pad - 1)
-    return (cnt > 0) & (scanned[0, idx] < INF)
-
-
-def _dedup_supported(cb: ClusterBVH, budget: int) -> bool:
-    from tpu_pt.kernels.cluster_isect import B as PBLK
-
-    return (cb.tiles.shape[1] == 12 and cb.tiles.shape[2] == 128
-            and budget % PBLK == 0)
-
-
-def _test_pairs_dedup(cb: ClusterBVH, ro, rd, t_min1, t_max1, rayP, cidP):
-    """Sort the pair list by CLUSTER id and run the dedup Pallas kernel
-    (one tile DMA per uniform group instead of one per pair — coherent
-    batches fetch each distinct tile ~once).  Returns per-pair results in
-    the cid-sorted order: (t (P,), u, v, gid, rayS, okS)."""
-    from tpu_pt.kernels.cluster_isect import pair_tile_isect_dedup
-
-    Q = ro.shape[0]
-    ok = rayP < Q
-    key = jnp.where(ok, cidP, cb.n_clusters)        # dead pairs sort last
-    cidS, rayS = jax.lax.sort((key, rayP), dimension=0, num_keys=1,
-                              is_stable=True)
-    okS = cidS < cb.n_clusters
-    cid_clip = jnp.minimum(cidS, cb.n_clusters - 1)
-    rayC = jnp.minimum(rayS, Q - 1)
-    P = rayP.shape[0]
-    rays = jnp.zeros((P, 16), jnp.float32)
-    rays = rays.at[:, 0:3].set(ro[rayC])
-    rays = rays.at[:, 3:6].set(rd[rayC])
-    rays = rays.at[:, 6].set(t_min1[rayC])
-    rays = rays.at[:, 7].set(t_max1[rayC])
-    rays = rays.at[:, 8].set(okS.astype(jnp.float32))
-    out = pair_tile_isect_dedup(cb.tiles, cid_clip, rays)
-    t_p = jnp.where(okS, out[:, 0], INF)
-    lane = jnp.clip(out[:, 1].astype(jnp.int32), 0, 127)
-    gid = cb.tile_gid[cid_clip, lane]
-    return t_p, out[:, 2], out[:, 3], gid, rayC, okS
+def pair_reduce_reference(rayP, t_p, g_p, u_p, v_p, Q: int):
+    """Plain numpy reference of _reduce_closest + _reduce_anyhit (for the
+    tests and the GPU smoke check): returns (best_t, gid, u, v, occluded)
+    per ray, each pair list entry read independently of the others."""
+    rayP, t_p, g_p = np.asarray(rayP), np.asarray(t_p), np.asarray(g_p)
+    u_p, v_p = np.asarray(u_p), np.asarray(v_p)
+    best_t = np.full(Q, INF, np.float32)
+    best_g = np.zeros(Q, np.int32)
+    best_u = np.zeros(Q, np.float32)
+    best_v = np.zeros(Q, np.float32)
+    hit = (rayP < Q) & (t_p < INF)
+    idx = np.flatnonzero(hit)
+    order = np.lexsort((g_p[idx], t_p[idx], rayP[idx]))
+    rays, first = np.unique(rayP[idx][order], return_index=True)
+    pick = idx[order][first]
+    best_t[rays], best_g[rays] = t_p[pick], g_p[pick]
+    best_u[rays], best_v[rays] = u_p[pick], v_p[pick]
+    occ = np.zeros(Q, bool)
+    occ[rays] = True
+    return best_t, best_g, best_u, best_v, occ
 
 
 def _retrace_suspects_closest(cb: ClusterBVH, ro, rd, t_min1, t_max1,
@@ -1371,23 +1219,15 @@ def _retrace_suspects_anyhit(cb: ClusterBVH, ro, rd, t_min1, t_max1,
     return jax.lax.cond(jnp.any(suspect), repair, lambda o: o, occ)
 
 
-# Intra-batch traversal split (r5): run the traversal as SPLIT independent
-# sub-batches of Q/SPLIT rays each.  Measured on the headline scene
-# (tools/profile_overlap.py / profile_split.py, TPU v5e): the traversal is
-# SUB-LINEAR in batch width — two independent 2048-wide closest traversals
-# beat one 4096-wide by 12% (4.77 vs 5.40 ms) via cheaper narrow
-# sorts/intermediates plus mild XLA interleaving of the independent chains.
-# Per-ray results are bit-identical (all stages reduce per ray); only the
-# static pair budget is sliced per sub-batch, so truncation PATTERNS can
-# differ — which the overflow counter reports and verify-then-retry repairs
-# exactly, same as any other capacity miss.
-#
-# Sweep (tools/profile_split.py, big-1m, Q=4096, TPU v5e):
-#   closest: split 1/2/4/8 -> 5.414 / 4.730 / 3.954 / 4.303 ms
-#   anyhit:  split 1/2/4   -> 4.987 / 4.415 / 3.928 ms
-# -> 4 (sub-batch width 1024) is the winner for both; _split_batches keeps
-# sub-batches >= 1024 rays so smaller queues degrade gracefully to fewer
-# splits.
+# Intra-batch traversal split: run the traversal as SPLIT independent
+# sub-batches of Q/SPLIT rays each (narrower sorts and intermediates, and
+# independent chains XLA can interleave).  Per-ray results are
+# bit-identical (all stages reduce per ray); only the static pair budget is
+# sliced per sub-batch, so truncation PATTERNS can differ — which the
+# overflow counter reports and verify-then-retry repairs exactly, same as
+# any other capacity miss.  4 (sub-batch width 1024) is a tuning constant
+# not yet re-measured on the GPU (ROADMAP 1d); _split_batches keeps
+# sub-batches >= 1024 rays so smaller queues degrade to fewer splits.
 SPLIT_CLOSEST = 4
 SPLIT_ANYHIT = 4
 
@@ -1405,166 +1245,119 @@ def _split_batches(Q: int, split: int) -> int:
     return k
 
 
+def _split_map(fn, k: int, *lanes):
+    """Run ``fn`` over k STRIDED sub-batches (sub-batch i takes lanes i,
+    i+k, ...) as one vmapped program, and put the per-lane outputs back in
+    lane order.  fn returns per-lane arrays plus a trailing per-sub-batch
+    scalar count, which is summed."""
+    if k == 1:
+        return fn(*lanes)
+
+    def split(x):
+        return x.reshape((x.shape[0] // k, k) + x.shape[1:]).swapaxes(0, 1)
+
+    *per_lane, count = jax.vmap(fn)(*(split(x) for x in lanes))
+    return (*(x.swapaxes(0, 1).reshape((-1,) + x.shape[2:])
+              for x in per_lane), jnp.sum(count))
+
+
 def _traverse_compact(cb: ClusterBVH, ro, rd, t_min, t_max,
                       suspect_out: list | None = None):
     """Closest hit: sort-free descent + one flat all-candidates pair batch
-    + segmented min.  No while_loop, no best-t feedback — exact because
-    every live candidate is tested.  Returns (best_t (Q,1), gid, u, v).
+    + per-ray reduce.  No while_loop, no best-t feedback — exact because
+    every live candidate is tested.  Returns (best_t (Q,1), gid, u, v,
+    overflow count).
 
     Sub-batches are STRIDED (sub-batch i takes lanes i, i+k, ...), not
     contiguous: wavefront respawn fills lanes in pixel order, so
     contiguous slices concentrate coherent hot blocks and blow the
-    per-sub-batch pair budget (measured: 29,763 truncations on the
-    headline bench with contiguous quarters vs 0 unsplit).  Round-robin
-    lanes give every slice a statistically identical mix — same
-    load-balance argument as dist.sharding's pixel interleaving.
+    per-sub-batch pair budget (29,763 truncations on the headline bench
+    with contiguous quarters vs 0 unsplit).  Round-robin lanes give every
+    slice a statistically identical mix — same load-balance argument as
+    dist.sharding's pixel interleaving.  The sub-batches run as one vmapped
+    program (one copy of the traversal in the compiled program).
 
     suspect_out: observability hook — when a list is passed, the per-ray
     suspect mask (this ray's candidates overflowed some static budget) is
     appended; the basis of suspect-pixel-only repair (VERDICT r5 task 6).
     """
     k = _split_batches(ro.shape[0], SPLIT_CLOSEST)
-    if k > 1:
-        subs = [[] for _ in range(k)] if suspect_out is not None else \
-            [None] * k
-        outs = [_traverse_compact_1(cb, ro[i::k], rd[i::k],
-                                    t_min[i::k], t_max[i::k],
-                                    suspect_out=subs[i])
-                for i in range(k)]
-        bt, g, u, v, novf = zip(*outs)
-        if suspect_out is not None:
-            suspect_out.append(
-                jnp.stack([s[0] for s in subs], 1).reshape(-1))
-        return (jnp.stack(bt, 1).reshape(-1, 1),
-                jnp.stack(g, 1).reshape(-1),
-                jnp.stack(u, 1).reshape(-1, 1),
-                jnp.stack(v, 1).reshape(-1, 1), sum(novf))
-    return _traverse_compact_1(cb, ro, rd, t_min, t_max,
-                               suspect_out=suspect_out)
+    t_min1, t_max1 = t_min[:, 0], t_max[:, 0]
+    best_t, best_g, best_u, best_v, suspect, n_ovf = _split_map(
+        functools.partial(_traverse_compact_1, cb), k, ro, rd, t_min1,
+        t_max1)
+    if cb.fallback is not None:
+        best_t, best_g, best_u, best_v = _retrace_suspects_closest(
+            cb, ro, rd, t_min1, t_max1, suspect,
+            (best_t, best_g, best_u, best_v))
+    if suspect_out is not None:
+        suspect_out.append(suspect)
+    return best_t[:, None], best_g, best_u[:, None], best_v[:, None], n_ovf
 
 
-def _traverse_compact_1(cb: ClusterBVH, ro, rd, t_min, t_max,
-                        suspect_out: list | None = None):
+def _traverse_compact_1(cb: ClusterBVH, ro, rd, t_min1, t_max1):
+    """One closest-hit sub-batch: (best_t, gid, u, v, suspect, overflow)."""
     Q = ro.shape[0]
-    t_min1 = t_min[:, 0]
-    t_max1 = t_max[:, 0]
     cand, live, ovf = _descend_compact(cb, ro, 1.0 / rd, t_min1[:, None],
                                        t_max1[:, None])
     budget = int(cb.pair_mults[2] * Q)
-    rayP, cidP, dropped, cnt, right, lost = _flat_pairs(cand, live, Q,
+    rayP, cidP, dropped, cnt, lost = _flat_pairs(cand, live, Q,
                                                         budget)
-    n_ovf = jnp.sum(ovf) + dropped
-    if suspect_out is not None:
-        suspect_out.append((ovf > 0) | (lost > 0))
-    if DEDUP_PAIRS and _dedup_supported(cb, budget):
-        # Cluster-major: dedup-fetch kernel + scatter-min per-ray reduce.
-        t_p, u_p, v_p, g_p, rayC, okS = _test_pairs_dedup(
-            cb, ro, rd, t_min1, t_max1, rayP, cidP)
-        P = t_p.shape[0]
-        best_t = jnp.full((Q,), INF).at[rayC].min(t_p, mode="drop")
-        is_best = okS & (t_p <= best_t[rayC]) & (t_p < INF)
-        pidx = jnp.arange(P, dtype=jnp.int32)
-        widx = jnp.full((Q,), P, jnp.int32).at[rayC].min(
-            jnp.where(is_best, pidx, P), mode="drop")
-        has = widx < P
-        wc = jnp.clip(widx, 0, P - 1)
-        best_u = jnp.where(has, u_p[wc], 0.0)
-        best_v = jnp.where(has, v_p[wc], 0.0)
-        best_g = jnp.where(has, g_p[wc], 0)
-        best_t = jnp.where(has, best_t, INF)
-    elif USE_SCAN_REDUCE and _scan_supported(cb, Q):
-        best_t, best_g, best_u, best_v = _reduce_pairs_closest_scan(
-            cb, ro, rd, t_min1, t_max1, rayP, cidP, cnt, right)
-    else:
-        best_t, best_g, best_u, best_v = _reduce_pairs_closest(
-            cb, ro, rd, t_min1, t_max1, rayP, cidP, cnt, right)
-    if cb.fallback is not None:
-        best_t, best_g, best_u, best_v = _retrace_suspects_closest(
-            cb, ro, rd, t_min1, t_max1, (ovf > 0) | (lost > 0),
-            (best_t, best_g, best_u, best_v))
-    return best_t[:, None], best_g, best_u[:, None], best_v[:, None], n_ovf
+    t_p, u_p, v_p, g_p = _test_pair_batch(
+        cb, ro, rd, t_min1, t_max1, jnp.minimum(rayP, Q - 1), cidP,
+        rayP < Q)
+    return (*_reduce_closest(rayP, t_p, g_p, u_p, v_p, cnt),
+            (ovf > 0) | (lost > 0), jnp.sum(ovf) + dropped)
 
 
 def _traverse_compact_anyhit(cb: ClusterBVH, ro, rd, t_min, t_max,
                              suspect_out: list | None = None,
                              narrow: bool = False):
     """Occlusion: any tested pair with a hit in range occludes its ray.
-    narrow=True selects the steady-state shadow pair budget
-    (pair_mults[3]) — see _traverse_compact_anyhit_1."""
-    k = _split_batches(ro.shape[0], SPLIT_ANYHIT)
-    if k > 1:  # strided slices — see _traverse_compact
-        subs = [[] for _ in range(k)] if suspect_out is not None else \
-            [None] * k
-        outs = [_traverse_compact_anyhit_1(cb, ro[i::k], rd[i::k],
-                                           t_min[i::k], t_max[i::k],
-                                           suspect_out=subs[i],
-                                           narrow=narrow)
-                for i in range(k)]
-        occ, novf = zip(*outs)
-        if suspect_out is not None:
-            suspect_out.append(
-                jnp.stack([s[0] for s in subs], 1).reshape(-1))
-        return jnp.stack(occ, 1).reshape(-1), sum(novf)
-    return _traverse_compact_anyhit_1(cb, ro, rd, t_min, t_max,
-                                      suspect_out=suspect_out,
-                                      narrow=narrow)
+    Strided sub-batches as in _traverse_compact.  Returns ((Q,) bool,
+    overflow count).
 
-
-def _traverse_compact_anyhit_1(cb: ClusterBVH, ro, rd, t_min, t_max,
-                               suspect_out: list | None = None,
-                               narrow: bool = False):
-    Q = ro.shape[0]
-    t_min1 = t_min[:, 0]
-    t_max1 = t_max[:, 0]
-    cand, live, ovf = _descend_compact(cb, ro, 1.0 / rd, t_min1[:, None],
-                                       t_max1[:, None])
-    # Any-hit pair budget: callers that KNOW the batch is a steady-state
-    # shadow wave (the wavefront loop body after its wide warm-up prefix)
-    # pass narrow=True for the pair_mults[3] budget (~2/3 of the closest
-    # stage's: shadow batches are half-occupied in steady state); all
-    # other calls use the wide pair_mults[2] budget, which also covers the
-    # fully-occupied wide-angle first-wave shadows (r5: 884 step-0
-    # truncations at 128² under the narrow budget).  A runtime lax.cond
-    # ladder between the two widths measured CATASTROPHIC (467,961 vs
-    # 767,910 rays/s — XLA pays for both branches), hence this static
-    # caller-side split.  The ANYHIT_MULT A/B knob overrides both.
+    Any-hit pair budget: callers that KNOW the batch is a steady-state
+    shadow wave (the wavefront loop body after its wide warm-up prefix)
+    pass narrow=True for the pair_mults[3] budget (~2/3 of the closest
+    stage's: shadow batches are half-occupied in steady state); all other
+    calls use the wide pair_mults[2] budget, which also covers the
+    fully-occupied wide-angle first-wave shadows (884 step-0 truncations at
+    128² under the narrow budget).  A runtime lax.cond ladder between the
+    two widths pays for both branches, hence this static caller-side split.
+    The ANYHIT_MULT A/B knob overrides both."""
     if ANYHIT_MULT is not None:
         mult = ANYHIT_MULT
     elif narrow and len(cb.pair_mults) > 3:
         mult = cb.pair_mults[3]
     else:
         mult = cb.pair_mults[2]
-    budget = int(mult * Q)
-    rayP, cidP, dropped, cnt, right, lost = _flat_pairs(cand, live, Q,
-                                                        budget)
-    n_ovf = jnp.sum(ovf) + dropped
-    if suspect_out is not None:
-        suspect_out.append((ovf > 0) | (lost > 0))
-    if DEDUP_PAIRS and _dedup_supported(cb, budget):
-        t_p, _, _, _, rayC, okS = _test_pairs_dedup(
-            cb, ro, rd, t_min1, t_max1, rayP, cidP)
-        hit_pair = ((t_p < INF) & okS).astype(jnp.int32)
-        occ = jnp.zeros((Q,), jnp.int32).at[rayC].add(hit_pair,
-                                                      mode="drop") > 0
-    elif USE_SCAN_REDUCE and _scan_supported(cb, Q):
-        occ = _reduce_pairs_anyhit_scan(
-            cb, ro, rd, t_min1, t_max1, rayP, cidP, cnt, right)
-    else:
-        pair_ok = rayP < Q
-        rayPc = jnp.minimum(rayP, Q - 1)
-        t_p, _, _, _ = _test_pair_batch(
-            cb, ro, rd, t_min1, t_max1, rayPc, cidP, pair_ok)
-        # Per-ray any() as one scatter-add over the pair list (~0.8 ms at
-        # the bench shape vs 2.6 ms for the r2-era (Q, k_leaf) gather-back
-        # — tools/microbench_reduce.py; XLA's sort-based scatter expansion
-        # is cheap at P = pair-budget size).
-        hit_pair = ((t_p < INF) & pair_ok).astype(jnp.int32)
-        occ = jnp.zeros((Q,), jnp.int32).at[rayPc].add(hit_pair,
-                                                       mode="drop") > 0
+    k = _split_batches(ro.shape[0], SPLIT_ANYHIT)
+    t_min1, t_max1 = t_min[:, 0], t_max[:, 0]
+    occ, suspect, n_ovf = _split_map(
+        functools.partial(_traverse_compact_anyhit_1, cb, mult), k, ro, rd,
+        t_min1, t_max1)
     if cb.fallback is not None:
-        occ = _retrace_suspects_anyhit(
-            cb, ro, rd, t_min1, t_max1, (ovf > 0) | (lost > 0), occ)
+        occ = _retrace_suspects_anyhit(cb, ro, rd, t_min1, t_max1, suspect,
+                                       occ)
+    if suspect_out is not None:
+        suspect_out.append(suspect)
     return occ, n_ovf
+
+
+def _traverse_compact_anyhit_1(cb: ClusterBVH, mult, ro, rd, t_min1,
+                               t_max1):
+    """One any-hit sub-batch: (occluded, suspect, overflow)."""
+    Q = ro.shape[0]
+    cand, live, ovf = _descend_compact(cb, ro, 1.0 / rd, t_min1[:, None],
+                                       t_max1[:, None])
+    rayP, cidP, dropped, cnt, lost = _flat_pairs(cand, live, Q,
+                                                        int(mult * Q))
+    t_p, _, _, _ = _test_pair_batch(
+        cb, ro, rd, t_min1, t_max1, jnp.minimum(rayP, Q - 1), cidP,
+        rayP < Q)
+    return (_reduce_anyhit(rayP, t_p, cnt), (ovf > 0) | (lost > 0),
+            jnp.sum(ovf) + dropped)
 
 
 def compact_stats(cb: ClusterBVH, ro, rd, t_min, t_max):
@@ -1582,35 +1375,21 @@ def compact_stats(cb: ClusterBVH, ro, rd, t_min, t_max):
     cand, live, overflow = _descend_compact(
         cb, ro, 1.0 / rd, t_min1[:, None], t_max1[:, None])
     budget = int(cb.pair_mults[2] * Q)
-    rayP, _, dropped, _, _, _ = _flat_pairs(cand, live, Q, budget)
+    rayP, _, dropped, _, _ = _flat_pairs(cand, live, Q, budget)
     n_live = jnp.sum((rayP < Q).astype(jnp.int32))
     return n_live, jnp.sum(overflow) + dropped
 
 
-# Traversal mode: "compact" (r2 production: sort-free mask-compaction
-# descent + one flat all-candidates pair batch), "frontier" (r1 per-ray
-# t-sorted frontier + best-t feedback rounds) or "pairs" (flat pair-major
-# walk — 1-D sorts at every level).  Measured on the 1.3M-tri bench
-# (tools/profile_stages.py).
+# Traversal mode: "compact" (production: sort-free mask-compaction descent
+# + one flat all-candidates pair batch), "frontier" (per-ray t-sorted
+# frontier + best-t feedback rounds) or "pairs" (flat pair-major walk —
+# 1-D sorts at every level).
 TRAVERSAL_MODE = "compact"
 
 # Gather the descent's child AABBs from the bf16 outward-rounded tables
 # (half the block-gather bytes; candidate selection stays exact because
-# rounding is conservative).  Flip measured via tools/microbench_pairs.py.
+# rounding is conservative).
 GATHER_BF16 = True
-
-# Cluster-major pair stage: sort pairs by cluster id and run the dedup
-# Pallas kernel (kernels/cluster_isect.py) — uniform groups fetch ONE tile
-# for 8 pairs, cutting tile HBM bytes toward the distinct-cluster count
-# (measured 483 distinct / 16384 pairs on coherent bench batches, 80%
-# uniform groups).  Exact: every pair is still tested.
-# EXPERIMENT CLOSED (r4, VERDICT r3 task 2b): BENCH_DEDUP=1 on the 1.3M-tri
-# headline measured 568,787 rays/s vs 628,117 default (run 4.90 s vs
-# 4.44 s, compile 894 s vs 298 s) — the cid-sort + scatter reduce costs
-# more than the ~30x tile-byte reduction saves, because the XLA block
-# gather already streams tiles at ~176 GB/s (contiguous 6 KB blocks) and
-# is not the bottleneck.  The kernel stays as a tested sidecar.
-DEDUP_PAIRS = False
 
 
 def intersect_counted(cb: ClusterBVH, scene: Scene, ro, rd, t_min, t_max,
@@ -1732,12 +1511,12 @@ def attach_fallback(cb: ClusterBVH, scene: Scene,
     PackedBVH): any ray whose candidates overflow a static budget is
     re-traced through the exact per-ray octant walk, so truncation can
     only cost time, never hits."""
-    from tpu_pt.bvh.native import build_packed_any
+    from tpu_pt.bvh.native import build_packed
 
     return ClusterBVH(cb.levels, cb.tiles, cb.tile_gid, cb.frontiers,
                       cb.k_leaf, cb.pair_budget, pair_mults=cb.pair_mults,
                       levels16=cb.levels16,
-                      fallback=build_packed_any(scene, max_leaf=max_leaf))
+                      fallback=build_packed(scene, max_leaf=max_leaf))
 
 
 def autotune_for_render(scene: Scene, cam, cfg, queue: int = 4096,
@@ -1764,9 +1543,9 @@ def autotune_for_render(scene: Scene, cam, cfg, queue: int = 4096,
     from tpu_pt.render.driver import _intersectors_counted
 
     # Probe at a bounded resolution: per-ray frontier widths are a per-ray
-    # geometric property independent of pixel count, and probing the full
-    # 1024² config measured 1,302 s of build time (r4 sweep) — a ≤512²
-    # probe sees the same populations at a fraction of the compile cost
+    # geometric property independent of pixel count, so a ≤512² probe
+    # sees the same populations as the full render at a fraction of the
+    # cost
     # (camera still spans the full field of view; strided segments still
     # cover the whole image).  Pair budgets are sized from per-SLICE
     # maxima below, which are pixel-decorrelated at any resolution, so no
@@ -1822,8 +1601,7 @@ def autotune_for_render(scene: Scene, cam, cfg, queue: int = 4096,
                 # The budget applies PER STRIDED SUB-BATCH in production
                 # (SPLIT_CLOSEST/SPLIT_ANYHIT), so size from the max
                 # per-slice pair sum (whole-batch totals carry ~1.4x
-                # coherent-peak inflation that strided slices flatten —
-                # the r5-measured 26% autotune penalty).
+                # coherent-peak inflation that strided slices flatten).
                 ks = _split_batches(live.shape[0],
                                     SPLIT_CLOSEST if j == 0 else
                                     SPLIT_ANYHIT)
@@ -1859,8 +1637,7 @@ def autotune_for_render(scene: Scene, cam, cfg, queue: int = 4096,
         for lv, n in zip(probe_cb.levels, need_max))
     # Pair budgets get a THINNER margin than the frontier caps: they are
     # the dominant runtime cost of over-provisioning (every budgeted pair
-    # slot is tile-tested whether live or dead — the r5-measured 26%
-    # autotune penalty was almost entirely inflated pair mults), and the
+    # slot is tile-tested whether live or dead), and the
     # exact fallback + verify-then-retry make a thin margin safe: an
     # out-of-envelope batch degrades to slower, never to wrong.
     # No extra coherence factor on top: the per-slice maxima already

@@ -1,6 +1,6 @@
 """Stackless BVH traversal over the flat skip-pointer layout (XLA path).
 
-TPU-native counterpart of the reference's ``BVHAccel::intersect`` recursive
+Batched counterpart of the reference's ``BVHAccel::intersect`` recursive
 walk and the CUDA kernel's iterative stack traversal (SURVEY.md §2 rows 9,
 14).  Every ray carries a single node cursor; all rays advance in lockstep
 inside one ``lax.while_loop`` whose body is: gather node → AABB slab test →
@@ -9,9 +9,7 @@ skip[i] (miss / after leaf).  Terminated lanes idle at cursor == N until the
 slowest lane finishes — the wavefront renderer compacts those away between
 bounces (SURVEY.md §2 "Parallelism strategies").
 
-This module is the semantic reference for the Pallas intersect kernel
-(tpu_pt/kernels/intersect.py); both must report identical nearest hits
-(tests compare against render/brute.py).
+Tests compare its nearest hits against render/brute.py.
 """
 
 from __future__ import annotations

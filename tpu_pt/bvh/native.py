@@ -1,15 +1,21 @@
 """ctypes bridge to the native C++ BVH builder (native/bvh_builder.cpp).
 
 Drop-in replacement for the Python SAH build + octant pack: one call
-produces the PackedBVH tables.  Falls back to the Python path when the
-shared library is missing (tests assert both paths agree).
+produces the PackedBVH tables (tests assert both paths agree).  The shared
+library is compiled from source at first use into ``<checkout>/build/``
+(listed in .gitignore), one file per source version; ``python -m
+tpu_pt.bvh.native`` builds it ahead of time.  A failed build raises: the
+pure-Python SAH path takes minutes at a million primitives, so it is never
+taken silently.
 """
 
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
-from typing import Optional
+import subprocess
+import tempfile
 
 import numpy as np
 
@@ -17,18 +23,48 @@ from tpu_pt.bvh.packed import PackedBVH
 from tpu_pt.bvh.sah import prim_bounds
 from tpu_pt.scene.types import Scene
 
-_LIB_PATH = os.path.join(os.path.dirname(__file__), "..", "_native", "libbvh.so")
+_CHECKOUT = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
+_SRC = os.path.join(_CHECKOUT, "native", "bvh_builder.cpp")
+BUILD_DIR = os.path.join(_CHECKOUT, "build")
 _lib = None
 
 
-def available() -> bool:
-    return _load() is not None
+def lib_path() -> str:
+    """Where the library for the current source lives (keyed by its hash)."""
+    with open(_SRC, "rb") as f:
+        digest = hashlib.sha256(f.read()).hexdigest()[:12]
+    return os.path.join(BUILD_DIR, f"libbvh-{digest}.so")
+
+
+def build() -> str:
+    """Compile native/bvh_builder.cpp unless this source version is built;
+    return the library path.  Concurrent builders each write a private
+    temporary file and rename it into place."""
+    path = lib_path()
+    if os.path.exists(path):
+        return path
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = ["g++", "-O3", "-shared", "-fPIC", "-std=c++17", _SRC, "-o", tmp]
+    try:
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(
+                f"native BVH builder failed to compile ({' '.join(cmd)}):\n"
+                + res.stderr)
+        os.replace(tmp, path)
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+    return path
 
 
 def _load():
     global _lib
-    if _lib is None and os.path.exists(_LIB_PATH):
-        lib = ctypes.CDLL(_LIB_PATH)
+    if _lib is None:
+        lib = ctypes.CDLL(build())
         lib.bvh_build.restype = ctypes.c_void_p
         lib.bvh_build.argtypes = [
             ctypes.POINTER(ctypes.c_float), ctypes.POINTER(ctypes.c_float),
@@ -39,25 +75,22 @@ def _load():
             ctypes.c_void_p, ctypes.POINTER(ctypes.c_float),
             ctypes.POINTER(ctypes.c_int),
         ]
-        if hasattr(lib, "bvh_count_leaves"):
-            lib.bvh_count_leaves.restype = ctypes.c_int
-            lib.bvh_count_leaves.argtypes = [ctypes.c_void_p]
-            lib.bvh_emit_leaves.restype = None
-            lib.bvh_emit_leaves.argtypes = [
-                ctypes.c_void_p, ctypes.POINTER(ctypes.c_float),
-                ctypes.POINTER(ctypes.c_float), ctypes.POINTER(ctypes.c_int),
-                ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int),
-            ]
+        lib.bvh_count_leaves.restype = ctypes.c_int
+        lib.bvh_count_leaves.argtypes = [ctypes.c_void_p]
+        lib.bvh_emit_leaves.restype = None
+        lib.bvh_emit_leaves.argtypes = [
+            ctypes.c_void_p, ctypes.POINTER(ctypes.c_float),
+            ctypes.POINTER(ctypes.c_float), ctypes.POINTER(ctypes.c_int),
+            ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int),
+        ]
         _lib = lib
     return _lib
 
 
 def build_leaves(scene: Scene, max_leaf: int):
     """Native SAH build -> (start, count, lo, hi, prim_perm) leaf arrays in
-    DFS order (the cluster-BVH host build).  None if lib missing/old."""
+    DFS order (the cluster-BVH host build)."""
     lib = _load()
-    if lib is None or not hasattr(lib, "bvh_count_leaves"):
-        return None
     lo, hi = prim_bounds(scene)
     lo = np.ascontiguousarray(lo, np.float32)
     hi = np.ascontiguousarray(hi, np.float32)
@@ -110,11 +143,9 @@ def _prim_rows(scene: Scene, pid: np.ndarray) -> np.ndarray:
     return rows
 
 
-def build_packed(scene: Scene, max_leaf: int = 4) -> Optional[PackedBVH]:
-    """Native binned-SAH build → PackedBVH.  None if the lib is missing."""
+def build_packed(scene: Scene, max_leaf: int = 4) -> PackedBVH:
+    """Native binned-SAH build → PackedBVH."""
     lib = _load()
-    if lib is None:
-        return None
     lo, hi = prim_bounds(scene)
     lo = np.ascontiguousarray(lo, np.float32)
     hi = np.ascontiguousarray(hi, np.float32)
@@ -136,12 +167,5 @@ def build_packed(scene: Scene, max_leaf: int = 4) -> Optional[PackedBVH]:
                            prim_gid=perm, max_leaf=max_leaf)
 
 
-def build_packed_any(scene: Scene, max_leaf: int = 4) -> PackedBVH:
-    """Native if available, else Python fallback."""
-    out = build_packed(scene, max_leaf)
-    if out is not None:
-        return out
-    from tpu_pt.bvh.packed import pack_bvh
-    from tpu_pt.bvh.sah import build_bvh
-
-    return pack_bvh(build_bvh(scene, max_leaf), scene, max_leaf)
+if __name__ == "__main__":
+    print(build())

@@ -1,9 +1,8 @@
 """Packed, gather-minimal BVH traversal — the tuned XLA hot path.
 
-Measured on TPU v5e (see git history): the naive flat traversal spends
-~1.4 ms per lockstep iteration on 4 separate node gathers, and a 65k-ray
-batch needs max-over-lanes iterations ≈ 9× the mean.  This module attacks
-both factors (SURVEY.md §7 hard-part 1, PAPERS.md ray-reordering):
+The naive flat traversal pays 4 separate node gathers per lockstep
+iteration, and a large ray batch needs max-over-lanes iterations far above
+the mean.  This module attacks both factors (SURVEY.md §7 hard-part 1, PAPERS.md ray-reordering):
 
   1. ONE gather per node step: the node is packed into an (N, 8) f32 row
      ``[min.xyz, max.xyz, skip_or_meta, meta]`` (int fields bitcast to f32);
@@ -41,7 +40,7 @@ from tpu_pt.scene.types import Scene
 class PackedBVH:
     """Pytree whose ``max_leaf`` is STATIC (aux data), so passing a
     PackedBVH as a jit argument keeps table arrays traced (donated/resident,
-    never baked in as huge constants — a 60× gather slowdown, measured) while
+    never baked in as huge constants) while
     the leaf-unroll count stays a Python int."""
 
     def __init__(self, table, prim_gid, max_leaf: int, n_tables: int,
@@ -53,11 +52,8 @@ class PackedBVH:
         #     meta: -1 for inner; else prim_slot_start | (count << 26)
         #   Prim row:  tri    [v0, e1, e2, matf, 0(type), pad]
         #              sphere [center, r, 0,0, 0,0,0, matf, 1(type), pad]
-        # WHY unified: XLA's TPU backend stages mid-sized (<~32 MB) gather
-        # operands into VMEM with a copy it fails to hoist OUT of the
-        # enclosing while loop — 21 MB × ~300 traversal iterations = seconds
-        # per batch (measured; see git history).  One big array exceeds the
-        # staging threshold, keeping every gather on the fast HBM path.
+        # WHY unified: one gather per traversal step reads nodes and
+        # primitives alike, from a single array.
         # prim_gid: (P,) i32 global primitive id per packed row.
         self.table = table
         self.prim_gid = prim_gid
@@ -257,7 +253,7 @@ def _traverse(packed: PackedBVH, ro, rd, t_min, t_max, any_hit: bool):
     rd_inv = 1.0 / rd
     # One unified (K*N + P, 16) table: node rows first (cursor offset by
     # octant*N), prim rows after prim_base.  Single gather per step either
-    # way, and the array is too large for XLA's in-loop VMEM staging copy.
+    # way.
     table = packed.table
     prim_base = packed.prim_base
     base = (_octant_of(rd) % packed.n_tables) * n

@@ -2,10 +2,10 @@
 
 Counterpart of the reference's ``BVHAccel::BVHAccel`` top-down SAH build +
 the CUDA path's "flatten BVH → linear node array (child indices, not
-pointers)" upload step (SURVEY.md §2 row 9, §3.2).  The TPU twist: nodes are
+pointers)" upload step (SURVEY.md §2 row 9, §3.2).  The twist: nodes are
 emitted in DFS order with a *skip pointer* (escape index), so traversal is
 stackless — each ray carries only one node cursor, which is what lets the
-XLA/Pallas traversal run thousands of rays in lockstep with no per-lane
+XLA traversal run thousands of rays in lockstep with no per-lane
 stack (SURVEY.md §7 step 2, hard-part 1).
 
 Layout invariants (tests/test_bvh.py checks these):

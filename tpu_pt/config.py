@@ -2,7 +2,7 @@
 
 Counterpart of the reference's getopt CLI flags (SURVEY.md §2 row 17:
 ``-t threads -s spp -l light_samples -m max_depth -r w h -f outfile``) plus
-the TPU-specific knobs the reference never needed.  The config is a frozen,
+the accelerator-batching knobs the reference never needed.  The config is a frozen,
 hashable dataclass so it can be a ``jax.jit`` static argument: config ==
 compilation key (SURVEY.md §5 "Config / flag system").
 """

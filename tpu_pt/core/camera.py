@@ -14,6 +14,7 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 
@@ -69,7 +70,9 @@ def generate_rays(cam: Camera, xy):
     dx = (2.0 * xy[..., 0:1] - 1.0) * tan_h
     dy = (2.0 * xy[..., 1:2] - 1.0) * tan_v
     d_cam = jnp.concatenate([dx, dy, -jnp.ones_like(dx)], axis=-1)
-    d_world = d_cam @ cam.c2w.T
+    # HIGHEST: a GPU may otherwise run an f32 product in TF32 (~3 digits).
+    d_world = jnp.matmul(d_cam, cam.c2w.T,
+                         precision=jax.lax.Precision.HIGHEST)
     rd = normalize(d_world)
     ro = jnp.broadcast_to(cam.origin, rd.shape)
     return ro, rd

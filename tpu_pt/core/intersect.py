@@ -1,6 +1,6 @@
 """Primitive intersection: Möller–Trumbore ray-triangle and ray-sphere.
 
-TPU-native counterpart of the reference's ``Triangle::intersect`` /
+Batched counterpart of the reference's ``Triangle::intersect`` /
 ``Sphere::intersect`` virtual methods (SURVEY.md §2 row 6).  Instead of a
 per-primitive virtual call, every function here is a dense batched test —
 typically (R rays) × (T triangles) or gathered per-ray candidate lists — and
@@ -14,10 +14,9 @@ import jax.numpy as jnp
 
 from tpu_pt.core.vecmath import cross, dot
 
-# Plain Python float, NOT jnp.float32(1e30): a module-level device-array
-# constant closed over inside a jitted lax.while_loop body was measured to
-# cost ~2 ms PER LOOP ITERATION on TPU (committed-constant sync); a Python
-# literal folds into the program for free.
+# Plain Python float, NOT jnp.float32(1e30): a Python literal folds into
+# the compiled program as a constant, while a module-level device array
+# closed over inside a jitted loop body becomes a captured buffer.
 INF = 1e30
 
 

@@ -4,7 +4,7 @@ Replaces the reference's ``Sampler2D/3D`` + ``random_uniform()``
 (SURVEY.md §2 row 11: ``UniformGridSampler2D``,
 ``CosineWeightedHemisphereSampler3D``).
 
-Key design point (TPU-native): randomness is **counter-based and
+Key design point: randomness is **counter-based and
 order-invariant**.  Every draw is a pure function of
 ``(base_key, ray_id, draw_id)`` where ray_id identifies the logical sample
 (pixel*spp + s) and draw_id identifies the call site (bounce*stride +

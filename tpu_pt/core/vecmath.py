@@ -1,6 +1,6 @@
 """Batched 3-D vector math.
 
-TPU-native replacement for the reference's scalar C++ math library
+Batched replacement for the reference's scalar C++ math library
 (SURVEY.md §2 row 1: ``CMU462/src/vector3D.*``, ``matrix4x4.*``,
 ``spectrum.h``).  Everything here operates on arrays whose LAST axis is the
 xyz component axis, so a "Vector3D" is any ``(..., 3)`` array and the whole

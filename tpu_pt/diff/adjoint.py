@@ -98,7 +98,7 @@ def loss_and_grad_wavefront(params, scene: Scene, cam, cfg: RenderConfig,
 
     steps_hint: static cap on the scan length — the differentiable scan
     cannot early-exit, and the worst-case bound pads it 2.8x (459/1285
-    executed on the headline; the 2.4x grad ablation row of BASELINE.md).
+    steps executed on the big-1m 1024² bench render).
     Callers derive the hint from a counting forward run (+ slack) and MUST
     check the returned ``done`` flag: (loss, grads, done) is returned when
     a hint is given; done=False means the hint was too small and the loss

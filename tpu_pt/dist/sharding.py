@@ -2,17 +2,17 @@
 
 Replaces the reference's distributed layer (SURVEY.md §2 row 15: image-space
 tile split across GPUs/nodes with a master/worker dynamic assignment over
-MPI/sockets, §3.3).  The TPU-native design has NO transport code at all
-(SURVEY.md §5 "Distributed communication backend"):
+MPI/sockets, §3.3).  This design has NO transport code at all (SURVEY.md
+§5 "Distributed communication backend"):
 
   - a ``jax.sharding.Mesh`` over all chips, axis "tile";
   - ``shard_map``: each chip renders a contiguous pixel range with the
     persistent-wavefront renderer; the scene + BVH are replicated;
   - the final image is a sharded array — assembling it on host 0 is just
     ``jax.device_get`` (XLA all-gathers lazily if asked);
-  - gradient reduction is ``psum`` over the mesh (it rides ICI inside a
-    slice, DCN between slices), inserted automatically by shard_map's AD
-    transpose for the replicated parameters.
+  - gradient reduction is ``psum`` over the mesh (XLA hands it to NCCL,
+    over NVLink between the GPUs of one host), inserted automatically by
+    shard_map's AD transpose for the replicated parameters.
 
 Load balance: the reference needed *dynamic* tile assignment because its
 tiles had wildly-varying cost (SURVEY.md §2 row 15).  Here each shard's
@@ -21,8 +21,7 @@ per-shard cost tracks the shard's total path-segment count, not its pixel
 count.  MEASURED on the 8-device CPU mesh (tools/measure_balance.py,
 atrium 256²): contiguous blocks still carry a real segment imbalance
 (different image regions have different mean path length), and round-robin
-pixel interleaving (``interleave=True``) collapses it to ~the drain tail —
-see BASELINE.md "Multi-chip load balance" for the recorded numbers.
+pixel interleaving (``interleave=True``) collapses it to ~the drain tail.
 ``render_sharded(with_stats=True)`` returns the per-shard counters.
 
 Multi-host: call ``jax.distributed.initialize()`` before building the mesh
@@ -74,12 +73,11 @@ def render_sharded(scene: Scene, cam, cfg: RenderConfig, key, bvh, mesh: Mesh,
     """Tile-sharded render over `mesh` -> (H, W, 3) on host.
 
     interleave=False: shard s renders the contiguous pixel block
-    [s*block, (s+1)*block).  interleave=True (DEFAULT — measured strictly
-    better r4: 0.0% vs 3.4% step imbalance on the atrium, bit-identical,
-    zero cost; BASELINE.md "Multi-chip load balance"): shard s renders
-    pixels {s, s+n, s+2n, ...} — round-robin over the image, so every
-    shard sees
-    a statistically identical pixel mix regardless of where the expensive
+    [s*block, (s+1)*block).  interleave=True (DEFAULT — 0.0% vs 3.4%
+    executed-step imbalance on the atrium, counted on the 8-device CPU
+    mesh by tools/measure_balance.py; bit-identical, zero cost): shard s
+    renders pixels {s, s+n, s+2n, ...} — round-robin over the image, so
+    every shard sees a statistically identical pixel mix regardless of where the expensive
     regions are.  This is the static answer to the reference's *dynamic*
     master/worker tile assignment (SURVEY.md §2 r15): dynamic stealing
     exists to fix cost imbalance between contiguous tiles, and round-robin
@@ -93,7 +91,7 @@ def render_sharded(scene: Scene, cam, cfg: RenderConfig, key, bvh, mesh: Mesh,
     sizes the imbalance (VERDICT r3 task 4).
 
     fast=True uses the early-exit while_loop per shard (each shard stops
-    when its sample budget drains) — the production-pod setting.  The
+    when its sample budget drains) — the production setting.  The
     default stays the fixed-length scan because it is BIT-identical to
     the single-device scan render (the repo's sharding-correctness
     gate); the fast path's unrolled wide-budget prefix compiles with

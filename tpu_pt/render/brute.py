@@ -1,7 +1,7 @@
 """Brute-force flat-list intersector — the CPU-oracle accelerator.
 
 This is SURVEY.md §4 item 1: "a deliberately naive, pure-jax.numpy renderer —
-flat primitive list — that the fast Pallas path must allclose against".  It
+flat primitive list — that the fast paths must allclose against".  It
 tests every ray against every primitive (O(R·T) memory), so it is only used
 on small scenes and small ray chunks; correctness over speed by design.
 

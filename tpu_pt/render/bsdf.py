@@ -1,11 +1,11 @@
 """BSDF evaluation and sampling over a material table.
 
-TPU-native replacement for the reference's BSDF class hierarchy
+Batched replacement for the reference's BSDF class hierarchy
 (SURVEY.md §2 row 10: ``DiffuseBSDF``, ``MirrorBSDF``, ``GlassBSDF``,
 ``RefractionBSDF``, ``EmissionBSDF`` with virtual ``f(wo,wi)`` /
 ``sample_f(wo,&wi,&pdf)``).  Virtual dispatch becomes a branchless select
 over material *kind*: every kind's result is computed for every ray and the
-right one chosen with ``jnp.where`` — cheap on the VPU, divergence-free.
+right one chosen with ``jnp.where`` — cheap elementwise math, divergence-free.
 
 All directions are in the LOCAL shading frame (z = shading normal), wo
 points away from the surface toward the viewer, matching the reference's

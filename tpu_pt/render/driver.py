@@ -35,15 +35,6 @@ def _intersectors(backend: str, bvh=None):
             functools.partial(flat.intersect, bvh),
             functools.partial(flat.occluded, bvh),
         )
-    if backend == "pallas":
-        from tpu_pt.kernels import intersect as pallas_isect
-
-        if bvh is None:
-            raise ValueError("backend='pallas' requires a PallasScene")
-        return (
-            functools.partial(pallas_isect.intersect, bvh),
-            functools.partial(pallas_isect.occluded, bvh),
-        )
     if backend == "cluster":
         from tpu_pt.bvh import cluster as cluster_mod
 

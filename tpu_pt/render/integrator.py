@@ -1,6 +1,6 @@
 """The path-tracing integrator, shared by every acceleration backend.
 
-TPU-native re-design of the reference's ``PathTracer::trace_ray`` /
+Batched re-design of the reference's ``PathTracer::trace_ray`` /
 ``estimate_direct_lighting`` / ``estimate_indirect_lighting`` recursion
 (SURVEY.md §2 row 13, §3.1).  The per-ray recursion becomes a bounce-major
 loop over a whole batch of rays with masked lanes; Russian roulette kills
@@ -8,7 +8,7 @@ lanes statistically exactly like the reference kills recursion.
 
 The integrator is parameterized by an *intersector* — a pair of closures
 ``(intersect, occluded)`` — so the brute-force oracle, the flattened-BVH
-traversal and the Pallas wavefront kernels all share THIS shading code.
+traversal and the wavefront cluster traversal all share THIS shading code.
 That is what makes BASELINE.json's "image allclose vs CPU oracle" gates
 meaningful: backends can only differ in which primitive they report nearest,
 never in shading math or random numbers (counter-based RNG; see

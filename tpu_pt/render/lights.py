@@ -2,7 +2,7 @@
 
 Counterpart of the reference's light hierarchy (SURVEY.md §2 row 7:
 ``AreaLight::sample_L``, point / directional / hemisphere lights returning
-radiance + wi + distance + pdf).  The TPU form samples ONE light table row
+radiance + wi + distance + pdf).  The batched form samples ONE light table row
 per (ray, light, sample) with broadcasting — lights are few, so the L axis
 is unrolled by the integrator.
 """

@@ -1,21 +1,20 @@
-"""Persistent-wavefront renderer — the TPU performance path.
+"""Persistent-wavefront renderer — the performance path.
 
-This is the heart of the TPU-native design (SURVEY.md §2 "Parallelism
-strategies", §5 "Long-context…the wavefront transform", §7 step 4).  The
-reference's CUDA megakernel gives every pixel a thread that recurses through
-bounces, paying warp divergence in the BVH walk (SURVEY.md §3.2).  On TPU we
-invert the loop: bounce depth becomes the OUTER loop over one global,
-fixed-size ray queue.
+This is the heart of the design (SURVEY.md §2 "Parallelism strategies",
+§5 "Long-context…the wavefront transform", §7 step 4).  The reference's
+CUDA megakernel gives every pixel a thread that recurses through bounces,
+paying warp divergence in the BVH walk (SURVEY.md §3.2).  Here the loop is
+inverted: bounce depth becomes the OUTER loop over one global, fixed-size
+ray queue.
 
-Stream compaction, TPU-style: GPU wavefront tracers shrink the queue each
-bounce (sort + kernel launch on the live prefix).  XLA needs static shapes,
-so instead of shrinking, the queue is kept **always full**: every step, dead
-lanes are *refilled* with fresh camera samples from the remaining sample
-budget, so lanes at different bounce depths coexist and occupancy stays at
-100% until the tail.  That is strictly better than compaction-to-prefix —
-there is no idle lane for the whole steady state — and it is exactly
-BASELINE.json's "wavefront (stream-compacted megakernel-free) ray batches"
-rebuilt for XLA semantics.
+Stream compaction with static shapes: classic GPU wavefront tracers shrink
+the queue each bounce (sort + kernel launch on the live prefix).  XLA needs
+static shapes, so instead of shrinking, the queue is kept **always full**:
+every step, dead lanes are *refilled* with fresh camera samples from the
+remaining sample budget, so lanes at different bounce depths coexist and
+occupancy stays at 100% until the tail.  There is no idle lane for the
+whole steady state — BASELINE.json's "wavefront (stream-compacted
+megakernel-free) ray batches" rebuilt for XLA semantics.
 
 Determinism: randomness is counter-based per (sample id, depth, purpose)
 (core/sampling.py), so this renderer produces bit-identical radiance samples
@@ -258,8 +257,8 @@ def _step_slice(scene: Scene, cam, cfg: RenderConfig, key, intersect_fn,
     # stop_gradient'ed downstream (shade_info detaches t/u/v; hit/prim are
     # bool/int), so detaching the ray inputs changes no gradient value — but
     # it stops jax.linearize from staging tangent residuals for the whole
-    # BVH walk inside every remat chunk of the differentiable scan (measured
-    # the dominant cost of the backward pass; see BASELINE.md config 4).
+    # BVH walk inside every remat chunk of the differentiable scan (once
+    # the dominant cost of the backward pass).
     sg = jax.lax.stop_gradient
     if ray_probe is not None:
         ray_probe.append((ro0, rd0, t_max))
@@ -483,24 +482,29 @@ def wavefront_accum(scene: Scene, cam, cfg: RenderConfig, key, bvh,
         # reverse-differentiable; the diff/dist paths use the scan below.
         total = jnp.int32(n_pix_local * spp_count)
 
-        # Wide warm-up PREFIX, unrolled before the loop: the first waves'
+        # Wide warm-up PREFIX before the main loop: the first waves'
         # shadow batches are fully occupied and wide-angle coherent — the
-        # binding any-hit pair population (r5: 884 step-0 truncations at
-        # 128² under the steady-state budget).  The prefix steps run the
-        # wide any-hit budget; the loop body then compiles the NARROW one
-        # (pair_mults[3], ~2/3 the width, +5% headline) statically — a
-        # runtime two-width lax.cond ladder measured CATASTROPHIC (-39%,
-        # XLA pays for both branches), the unrolled prefix costs nothing.
+        # binding any-hit pair population (884 step-0 truncations at 128²
+        # under the steady-state budget).  The prefix steps run the wide
+        # any-hit budget in a loop of their own; the main loop body then
+        # compiles the NARROW one (pair_mults[3], ~2/3 the width)
+        # statically — a runtime two-width lax.cond ladder would pay for
+        # both branches.
         prefix = min(WIDE_PREFIX_STEPS, steps)
-        nc = ns = novf = jnp.int32(0)
-        for _ in range(prefix):
+
+        def prefix_body(_, carry):
+            st, nc, ns, novf = carry
             st, (c, s, o) = _step(scene, cam, cfg, key, intersect_fn,
                                   occluded_fn, st, pix_lo, n_pix_local,
                                   spp_lo, spp_count, pix_stride=pix_stride,
                                   track_suspects=with_suspects,
                                   pix_ids=pix_ids, shadow_narrow=False,
                                   step_slices=step_slices)
-            nc, ns, novf = nc + c, ns + s, novf + o
+            return st, nc + c, ns + s, novf + o
+
+        zero = jnp.int32(0)
+        st, nc, ns, novf = jax.lax.fori_loop(0, prefix, prefix_body,
+                                             (st, zero, zero, zero))
 
         def cond(carry):
             st, nc, ns, novf, i = carry
@@ -583,7 +587,7 @@ def wavefront_accum(scene: Scene, cam, cfg: RenderConfig, key, bvh,
             def chunk_bwd(vjp, ct):
                 g_scene, g_st = vjp(ct)
                 # Reduce this chunk's parameter grads NOW, inside the
-                # backward sweep: the collective rides ICI while the next
+                # backward sweep: the collective runs while the next
                 # (earlier) chunk's backward kernels run.  Sum over chunks
                 # of per-chunk psums == tail psum of the sum (linearity).
                 g_scene = jax.tree.map(
@@ -633,8 +637,8 @@ def render_wavefront_checked(scene: Scene, cam, cfg: RenderConfig, key, bvh,
     ``checkify.checkify`` and RAISES on the first violated invariant
     (non-finite throughput/radiance, negative or out-of-range hit t, bad
     barycentrics).  The functional-core analogue of the reference's
-    debug-build asserts — compiled checks, usable on TPU.  Uses the scan
-    path (checkify's control-flow support is complete there)."""
+    debug-build asserts — compiled checks, usable on the GPU.  Uses the
+    scan path (checkify's control-flow support is complete there)."""
     from jax.experimental import checkify
 
     cfg = cfg.replace(debug_checks=True)
@@ -644,8 +648,7 @@ def render_wavefront_checked(scene: Scene, cam, cfg: RenderConfig, key, bvh,
         def fn(scene, cam, key, bvh):
             # Input sanitation FIRST: NaN geometry silently masks into
             # misses downstream (every NaN comparison is False), so it is
-            # undetectable from outputs — the same rationale as the Pallas
-            # kernels' _check_pair_in.
+            # undetectable from outputs.
             for name, arr in (("vertices", scene.vertices),
                               ("normals", scene.normals),
                               ("sph_center", scene.sph_center),

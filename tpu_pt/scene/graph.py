@@ -3,7 +3,7 @@
 Counterpart of the reference's ``src/dynamic_scene/*`` layer (SURVEY.md §2
 row 5): a GL-drawable object graph whose ``DynamicScene::Scene::
 get_static_scene()`` bakes node transforms into the flat primitive/light
-lists the renderer consumes.  The TPU form keeps exactly that contract —
+lists the renderer consumes.  The batched form keeps exactly that contract —
 an editable host-side tree of nodes with local 4x4 transforms, meshes,
 spheres, lights and cameras, and a ``get_static_scene()`` that flattens to
 the SoA ``Scene`` (scene/types.py) — without any GL/GUI machinery (out of

@@ -1,6 +1,6 @@
 """Scene representation: flat SoA device arrays.
 
-TPU-native replacement for the reference's object graph — the
+Batched replacement for the reference's object graph — the
 ``StaticScene::Scene{objects, lights}`` + per-primitive virtual dispatch
 (SURVEY.md §2 rows 5-7) and the CUDA tracer's "scene flattened to SoA device
 arrays" upload step (SURVEY.md §3.2).  Here the flat SoA form IS the scene;
